@@ -1,8 +1,9 @@
 """rsp_chains_tpu_torch: the PyTorch and CUDA port of ``rsp_chains_tpu``.
 
-This slice carries the main path, ``fft_mag_cfar_chain`` for CA-family
-elaborations, on hand-written CUDA kernels for Hopper (``csrc/``), each with a
-plain PyTorch version that CPU tensors take. The package imports torch and
+This slice carries the main path, ``fft_mag_cfar_chain``, for the CA, GOS,
+GOSCA and CASH CFAR (the default ``ChainConfig()`` is GOSCA + CASH), on
+hand-written CUDA kernels for Hopper (``csrc/``), each with a plain PyTorch
+version that CPU tensors take. The package imports torch and
 numpy, never jax.
 """
 

@@ -164,8 +164,9 @@ class LogMagConfig:
 @dataclass(frozen=True)
 class CfarConfig:
     """CFAR elaboration. ``use_pallas`` keeps its name from the JAX package:
-    True routes CA-family elaborations through the hand-written kernels, False
-    through the plain PyTorch ops. ``use_rdma_halo`` belongs to the sharded
+    True routes the elaborations the kernels carry (CA, GOS and GOSCA with
+    PARTIAL edges) through the hand-written kernels, False through the plain
+    PyTorch ops. ``use_rdma_halo`` belongs to the sharded
     path, which is not ported yet."""
 
     max_ref_window: int = 64

@@ -1,5 +1,6 @@
-// Shared device functions of the CA-family chain kernels: the magnitude mux
-// and the CA/GO/SO CFAR tail over one frame's magnitude row in shared memory.
+// Shared device functions of the chain kernels: the magnitude mux, the CFAR
+// epilogue pieces (window sums, mode, scaler, peak test) and the CA/GO/SO tail
+// over one frame's magnitude row in shared memory.
 //
 // Replaces, in rsp_chains_tpu/kernels/cfar_pallas.py: `_magnitude` (:112) and
 // the CA tails `_ca_cfar_body` (:153), `_ca_cfar_into` (:228) and
@@ -47,6 +48,50 @@ static __device__ __forceinline__ float rsp_magnitude(float re, float im,
   return log2f(fmaxf(jpl, 1e-30f));
 }
 
+// Window sums around the cell at `c`: lag = c[-guard-w .. -guard-1], lead =
+// c[guard+1 .. guard+w].
+static __device__ __forceinline__ void rsp_ca_sums(const float* c, int guard,
+                                                   int w, float& lag,
+                                                   float& lead) {
+  lag = 0.0f;
+  lead = 0.0f;
+  for (int k = 1; k <= w; ++k) {
+    lag += c[-guard - k];
+    lead += c[guard + k];
+  }
+}
+
+// The noise of two side statistics under the mode register: 1 GO, 2 SO,
+// anything else CA.
+static __device__ __forceinline__ float rsp_combine(int mode, float s_lag,
+                                                    float s_lead) {
+  if (mode == 1) return fmaxf(s_lag, s_lead);
+  if (mode == 2) return fminf(s_lag, s_lead);
+  return 0.5f * (s_lag + s_lead);
+}
+
+static __device__ __forceinline__ float rsp_threshold(float noise,
+                                                      int log_or_linear,
+                                                      float scaler) {
+  return log_or_linear == 1 ? noise * scaler : noise + scaler;
+}
+
+// Whether the active cell i, at `c` in the row, is a peak against threshold
+// t; with grouping it must also be a local maximum, a neighbour outside the
+// active range counting as -inf.
+static __device__ __forceinline__ uint8_t rsp_peak(const float* c, int i,
+                                                   float t, int grouping,
+                                                   int lo, int hi) {
+  const float m = c[0];
+  bool pk = m > t;
+  if (pk && grouping == 1) {
+    const float left = i - 1 >= lo ? c[-1] : -CUDART_INF_F;
+    const float right = i + 1 < hi ? c[1] : -CUDART_INF_F;
+    pk = m >= left && m >= right;
+  }
+  return pk ? 1 : 0;
+}
+
 // `row` points at shared memory holding [RSP_PAD zeros | mag[0..n) | RSP_PAD
 // zeros], with mag already zeroed outside the active range. Every thread of
 // the block takes cells tid, tid + blockDim.x, ...; the caller has
@@ -63,25 +108,12 @@ static __device__ __forceinline__ void rsp_ca_tail(
       continue;
     }
     const float* c = row + RSP_PAD + i;
-    float lag = 0.0f, lead = 0.0f;
-    for (int k = 1; k <= w; ++k) {
-      lag += c[-r.guard - k];
-      lead += c[r.guard + k];
-    }
-    const float s_lag = lag * inv_div, s_lead = lead * inv_div;
-    float noise;
-    if (r.cfar_mode == 1) noise = fmaxf(s_lag, s_lead);
-    else if (r.cfar_mode == 2) noise = fminf(s_lag, s_lead);
-    else noise = 0.5f * (s_lag + s_lead);
-    const float t = r.log_or_linear == 1 ? noise * r.scaler : noise + r.scaler;
-    const float m = c[0];
-    bool pk = m > t;
-    if (pk && r.peak_grouping == 1) {
-      const float left = i - 1 >= r.active_lo ? c[-1] : -CUDART_INF_F;
-      const float right = i + 1 < r.active_hi ? c[1] : -CUDART_INF_F;
-      pk = m >= left && m >= right;
-    }
+    float lag, lead;
+    rsp_ca_sums(c, r.guard, w, lag, lead);
+    const float t = rsp_threshold(
+        rsp_combine(r.cfar_mode, lag * inv_div, lead * inv_div),
+        r.log_or_linear, r.scaler);
     thr[i] = t;
-    peaks[i] = pk ? 1 : 0;
+    peaks[i] = rsp_peak(c, i, t, r.peak_grouping, r.active_lo, r.active_hi);
   }
 }

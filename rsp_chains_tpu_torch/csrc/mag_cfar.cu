@@ -39,8 +39,8 @@ rsp_mag_cfar_kernel(const float* __restrict__ re, const float* __restrict__ im,
 // re, im, thr: float32 [frames, n]; peaks: uint8 [frames, n]; all contiguous
 // on the current device. Launches on `stream` and returns cudaGetLastError().
 extern "C" int rsp_mag_cfar(const float* re, const float* im, float* thr,
-                            uint8_t* peaks, int frames, int n, RspCaRegs regs,
-                            cudaStream_t stream) {
+                            uint8_t* peaks, int frames, cudaStream_t stream,
+                            int n, RspCaRegs regs) {
   const size_t smem = (size_t)(n + 2 * RSP_PAD) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

@@ -1,0 +1,54 @@
+// Kernel C: magnitude + GOS / GOSCA / CASH CFAR on a spectrum, one thread
+// block per range tile of RSP_GOS_TILE cells of one frame.
+//
+// Replaces rsp_chains_tpu/kernels/cfar_pallas.py::fused_mag_gos_cfar (:1593,
+// pallas_call :1716; v3 body `_gos_kernel3` :1286 -> `_gos_rows_init` :1232 +
+// `_gos_tail` :1317). The chain takes it for a shrunken FFT-size register
+// under GOS or CASH registers, and as the tail of an FFT that does not fuse.
+//
+// Bound on the H100: the rank selection of gos_cfar.cuh (compares in shared
+// memory), not device memory: each block reads its tile and a RSP_PAD margin
+// on each side (the margins come again from L2 for the neighbouring tiles)
+// and writes 5 bytes a cell. Tiling the range keeps shared memory at
+// 3 * (RSP_GOS_TILE + 2*RSP_PAD) floats (6 KB) whatever the frame length, so
+// every multiple of 256 runs, the halo-extended 1280 included.
+#include <cuda_runtime.h>
+
+#include "gos_cfar.cuh"
+
+#define RSP_GOS_SLAB (RSP_GOS_TILE + 2 * RSP_PAD)
+
+__global__ void __launch_bounds__(RSP_THREADS)
+rsp_mag_gos_cfar_kernel(const float* __restrict__ re,
+                        const float* __restrict__ im, float* __restrict__ thr,
+                        uint8_t* __restrict__ peaks, int n, RspGosRegs r) {
+  __shared__ float row[RSP_GOS_SLAB];
+  __shared__ float st0[RSP_GOS_SLAB];
+  __shared__ float st1[RSP_GOS_SLAB];
+  const int tiles = n / RSP_GOS_TILE;
+  const size_t base = (size_t)(blockIdx.x / tiles) * n;
+  const int ts = (int)(blockIdx.x % tiles) * RSP_GOS_TILE;
+
+  for (int j = threadIdx.x; j < RSP_GOS_SLAB; j += blockDim.x) {
+    const int i = ts - RSP_PAD + j;
+    const bool active = i >= r.active_lo && i < r.active_hi && i >= 0 && i < n;
+    row[j] = active ? rsp_magnitude(re[base + i], im[base + i], r.mag_mode)
+                    : 0.0f;
+  }
+  __syncthreads();
+  rsp_gos_tail(row, st0, st1, ts, RSP_GOS_TILE, r, thr + base + ts,
+               peaks + base + ts);
+}
+
+// re, im, thr: float32 [frames, n]; peaks: uint8 [frames, n]; all contiguous
+// on the current device, n a multiple of RSP_GOS_TILE. Launches on `stream`
+// and returns cudaGetLastError().
+extern "C" int rsp_mag_gos_cfar(const float* re, const float* im, float* thr,
+                                uint8_t* peaks, int frames,
+                                cudaStream_t stream, int n, RspGosRegs regs) {
+  const long long blocks = (long long)frames * (n / RSP_GOS_TILE);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  rsp_mag_gos_cfar_kernel<<<(unsigned)blocks, RSP_THREADS, 0, stream>>>(
+      re, im, thr, peaks, n, regs);
+  return (int)cudaGetLastError();
+}

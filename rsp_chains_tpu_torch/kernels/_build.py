@@ -4,11 +4,13 @@
 with a plain C interface, loaded with ``ctypes``. The first use in a process
 builds it into ``rsp_chains_tpu_torch/_build/`` (listed in ``.gitignore``),
 named by a hash of the sources and flags, so a checkout builds once and a
-source edit builds anew. Nothing here runs at import time.
+source edit builds anew. The sources compile in parallel, one ``nvcc`` each,
+and one more ``nvcc`` links them. Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -21,15 +23,19 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("mag_cfar.cu", "chain_ca.cu")
-HEADERS = ("ca_cfar.cuh",)
+SOURCES = ("mag_cfar.cu", "chain_ca.cu", "mag_gos_cfar.cu", "chain_gos.cu")
+HEADERS = ("ca_cfar.cuh", "gos_cfar.cuh", "fft_radix2.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # How many times this process produced the library: compiled it, or loaded a
 # copy compiled earlier from the same sources. A register write must never
 # raise it.
 BUILDS = 0
+
+# Launches of each CUDA kernel in this process, by kernel name; a wrapper adds
+# one where it launches its kernel, and the plain path never adds.
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def _nvcc() -> str:
@@ -52,24 +58,45 @@ def library_path() -> Path:
     return BUILD_DIR / f"librsp_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs: list) -> str:
+    """Wait for every ``(cmd, Popen)``; raise on the first failure, after
+    stopping the others. Returns the compilers' reports."""
+    report = []
+    try:
+        for cmd, proc in procs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}{err}")
+            report.append(out + err)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return "".join(report)
+
+
 def _compile(out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: a concurrent process sees
-    # either no library or a whole one
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(str(CSRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, cwd=CSRC, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    # build under a temporary directory, then rename the library: a
+    # concurrent process sees either no library or a whole one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
+        compiles = []
+        for src, obj in zip(SOURCES, objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)]
+            compiles.append((cmd, subprocess.Popen(
+                cmd, cwd=CSRC, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        report = _run(compiles)
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, "-shared", "-o", lib, *objs]
+        report += _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+        out.with_suffix(".log").write_text(report)
+        os.replace(lib, out)
 
 
 @functools.lru_cache(maxsize=1)

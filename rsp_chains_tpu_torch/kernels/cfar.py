@@ -1,36 +1,41 @@
-"""Kernel B, ``mag_cfar``: magnitude + CA/GO/SO CFAR on a spectrum.
+"""The magnitude + CFAR kernels on a spectrum, and their dispatch.
 
-Replaces ``rsp_chains_tpu/kernels/cfar_pallas.py::fused_mag_cfar`` (:489,
-``pallas_call`` :555). The CUDA source is ``csrc/mag_cfar.cu``, with the
-shared device functions in ``csrc/ca_cfar.cuh``; that file says what bounds the
-kernel on the H100 and how its design answers. The kernel moves 13 bytes per
-complex sample: 8 in, 4 + 1 out.
+* Kernel B, ``mag_cfar``: magnitude + CA/GO/SO CFAR. Replaces
+  ``rsp_chains_tpu/kernels/cfar_pallas.py::fused_mag_cfar`` (:489,
+  ``pallas_call`` :555); CUDA source ``csrc/mag_cfar.cu`` with
+  ``csrc/ca_cfar.cuh``. It moves 13 bytes per complex sample: 8 in, 4 + 1 out.
+* Kernel C, ``mag_gos_cfar``: magnitude + GOS / GOSCA / CASH CFAR. Replaces
+  ``cfar_pallas.py::fused_mag_gos_cfar`` (:1593, ``pallas_call`` :1716); CUDA
+  source ``csrc/mag_gos_cfar.cu`` with ``csrc/gos_cfar.cuh``.
+* ``fused_mag_gos_dispatch``, the port of ``cfar_pallas.py:1747``: CA-like
+  registers of a GOSCA elaboration take Kernel B, the rest Kernel C.
 
-``mag_cfar`` launches the kernel for CUDA tensors and uses the plain version,
-``mag_cfar_reference``, only for CPU tensors. Registers are host values passed
-by value at launch (``CaRegs``), so a register write costs no device sync and
-no rebuild.
+Each CUDA source says what bounds its kernel on the H100 and how its design
+answers. A wrapper launches its kernel for CUDA tensors and uses the plain
+version (``*_reference``) only for CPU tensors. Registers are host values
+passed by value at launch (``CaRegs`` / ``GosRegs``), so a register write
+costs no device sync and no rebuild.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from ..configs import ChainConfig, CfarConfig, CfarVariant, EdgePolicy, RuntimeConfig
-from ..cplx import CLike, as_pair
-from ..ops.cfar import CfarOutput, cfar_op, window_registers
+from ..cplx import C, CLike, as_pair
+from ..ops.cfar import (
+    CfarOutput, cfar_op, effective_algorithm, effective_mode, window_registers,
+)
 from ..ops.logmag import logmag
 from . import _build
 
 MAX_LOG2_W = 6   # the kernels' window bound, as in cfar_pallas.MAX_LOG2_W
 PAD = 128        # csrc/ca_cfar.cuh RSP_PAD: zero margin each side of the row
-
-# Launches of the CUDA kernel in this process; the plain path never adds.
-LAUNCHES = 0
+GOS_TILE = 256   # csrc/gos_cfar.cuh RSP_GOS_TILE: Kernel C's range tile
 
 
 class CaRegs(ctypes.Structure):
@@ -44,11 +49,25 @@ class CaRegs(ctypes.Structure):
                 ("scaler", ctypes.c_float)]
 
 
+class GosRegs(ctypes.Structure):
+    """``RspGosRegs`` of ``csrc/gos_cfar.cuh``, field for field: the 13
+    registers in the order of ``fused_mag_gos_cfar``'s scalars
+    (``cfar_pallas.py:1663-1677``), then the scaler."""
+
+    _fields_ = [("log2w", ctypes.c_int), ("guard", ctypes.c_int),
+                ("div_sum", ctypes.c_int), ("cfar_mode", ctypes.c_int),
+                ("log_or_linear", ctypes.c_int),
+                ("peak_grouping", ctypes.c_int), ("active_hi", ctypes.c_int),
+                ("mag_mode", ctypes.c_int), ("algorithm", ctypes.c_int),
+                ("rank_lagg", ctypes.c_int), ("rank_lead", ctypes.c_int),
+                ("sub_w", ctypes.c_int), ("active_lo", ctypes.c_int),
+                ("scaler", ctypes.c_float)]
+
+
 def fused_tail_kind(chain_cfg: ChainConfig) -> Optional[str]:
-    """``"ca"`` when the CA kernels carry this elaboration's semantics, else
-    None (the plain ops). The same gate as the JAX package's
-    ``cfar_pallas.fused_tail_kind`` (:1784) for CA elaborations; GOS variants
-    are refused earlier (``ops.cfar.require_ca_family``)."""
+    """``"ca"`` when the CA kernels carry this elaboration's semantics,
+    ``"gos"`` when the GOSCA kernels do, else None (the plain ops). The gate
+    of the JAX package's ``cfar_pallas.fused_tail_kind`` (:1784)."""
     cfar = chain_cfg.cfar
     if not cfar.use_pallas or cfar.send_cut or cfar.emit_noise:
         return None
@@ -60,7 +79,18 @@ def fused_tail_kind(chain_cfg: ChainConfig) -> Optional[str]:
         return None
     if cfar.variant is CfarVariant.CA and not cfar.include_cash:
         return "ca" if cfar.max_ref_window <= 1 << MAX_LOG2_W else None
+    if cfar.variant in (CfarVariant.GOS, CfarVariant.GOSCA):
+        return "gos"
     return None
+
+
+def ca_like(rt: RuntimeConfig, cfg: CfarConfig) -> bool:
+    """Whether the registers select CA statistics outside CASH mode, so the CA
+    kernels carry the call (``fused_mag_gos_dispatch``'s condition,
+    ``cfar_pallas.py:1773``). A pure-GOS elaboration never is: it has no CA
+    datapath (``ops.cfar.effective_algorithm``)."""
+    return (effective_algorithm(rt, cfg) == 0
+            and min(max(int(rt.cfar_mode), 0), 3) != 3)
 
 
 def check_window_bounds(cfg: CfarConfig) -> None:
@@ -73,7 +103,7 @@ def check_window_bounds(cfg: CfarConfig) -> None:
 
 
 def ca_registers(rt: RuntimeConfig, cfg: CfarConfig, n: int) -> CaRegs:
-    """The kernels' register struct, clamped on the host as
+    """The CA kernels' register struct, clamped on the host as
     ``chain_pallas._chain_scalars`` (:817) clamps it: the active range is
     ``[0, min(cfar_fft_size, n))``.
 
@@ -91,6 +121,42 @@ def ca_registers(rt: RuntimeConfig, cfg: CfarConfig, n: int) -> CaRegs:
         scaler=float(rt.threshold_scaler))
 
 
+def gos_registers(rt: RuntimeConfig, cfg: CfarConfig, n: int) -> GosRegs:
+    """The GOSCA kernels' register struct, clamped on the host as
+    ``fused_mag_gos_cfar`` clamps its scalars, with the elaboration resolved
+    as ``ops.cfar.cfar_op`` resolves it: the mode clipped to 0..3 and CASH
+    degraded to CA where it is not elaborated, the algorithm 1 for a pure-GOS
+    elaboration whatever the register holds, the ranks clamped to
+    ``[0, max_ref_window)``."""
+    log2w, guard = window_registers(rt, cfg)
+    wmax = cfg.max_ref_window
+
+    def clamp(v, lo, hi):
+        return min(max(int(v), lo), hi)
+
+    return GosRegs(
+        log2w=log2w, guard=guard, div_sum=int(rt.div_sum),
+        cfar_mode=effective_mode(rt, cfg), log_or_linear=int(rt.log_or_linear),
+        peak_grouping=int(rt.peak_grouping),
+        active_hi=max(min(int(rt.cfar_fft_size), n), 0),
+        mag_mode=clamp(rt.mag_mode, 0, 3),
+        algorithm=effective_algorithm(rt, cfg),
+        rank_lagg=clamp(rt.index_lagg, 0, wmax - 1),
+        rank_lead=clamp(rt.index_lead, 0, wmax - 1),
+        sub_w=clamp(rt.sub_window_size, cfg.min_sub_window, wmax),
+        active_lo=0, scaler=float(rt.threshold_scaler))
+
+
+def takes_plain_path(x: C, name: str) -> bool:
+    """True for CPU tensors (the plain version runs), False for CUDA tensors
+    (the kernel launches); other devices raise."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} takes CPU or CUDA tensors, not {x.device}")
+    return False
+
+
 def check_cuda_operands(*tensors: torch.Tensor) -> None:
     """The kernels take contiguous float32 planes of one shape on one card."""
     first = tensors[0]
@@ -103,27 +169,42 @@ def check_cuda_operands(*tensors: torch.Tensor) -> None:
                              "shape")
 
 
-def launch_stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def check_launch(name: str, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
-
-
-@functools.lru_cache(maxsize=1)
-def _entry():
-    fn = _build.library().rsp_mag_cfar
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, CaRegs,
-                                           ctypes.c_void_p]
+@functools.lru_cache(maxsize=None)
+def entry(symbol: str, *argtypes) -> Callable[..., int]:
+    """The library's C entry ``symbol``. Every entry takes ``(re, im, thr,
+    peaks, frames, stream, *kernel arguments)`` and returns
+    ``cudaGetLastError()``; ``argtypes`` are the kernel arguments' types."""
+    fn = getattr(_build.library(), symbol)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p,
+                                           *argtypes]
     fn.restype = ctypes.c_int
     return fn
 
 
+def launch(name: str, x: C, fn: Callable[..., int], *args) -> CfarOutput:
+    """Allocate threshold and peaks for the frames of ``x`` (CUDA), launch the
+    kernel through its C entry ``fn`` with the kernel arguments ``args`` on the
+    current stream, and count the launch under ``name``."""
+    check_cuda_operands(x.re, x.im)
+    thr = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    pk = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    frames = x.re.numel() // x.shape[-1]
+    if frames:
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = fn(x.re.data_ptr(), x.im.data_ptr(), thr.data_ptr(),
+                    pk.data_ptr(), frames, stream, *args)
+        if rc != 0:
+            raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                               f"{rc}")
+        _build.LAUNCHES[name] += 1
+    return CfarOutput(threshold=thr, peaks=pk.view(torch.bool))
+
+
 def mag_cfar_reference(spectrum: CLike, rt: RuntimeConfig,
                        cfg: CfarConfig) -> CfarOutput:
-    """The plain PyTorch version of ``mag_cfar``, composed from the ops."""
+    """The plain PyTorch version of ``mag_cfar`` and ``mag_gos_cfar``,
+    composed from the ops."""
     return cfar_op(logmag(spectrum, rt.mag_mode), rt, cfg)
 
 
@@ -131,26 +212,45 @@ def mag_cfar(spectrum: CLike, rt: RuntimeConfig, cfg: CfarConfig) -> CfarOutput:
     """Magnitude + CA-family CFAR over the last axis of a spectrum
     ``[..., N]``, N a multiple of 128. Returns threshold float32 and peaks
     bool."""
-    global LAUNCHES
     sp = as_pair(spectrum)
     n = sp.shape[-1]
     if n % 128:
         raise ValueError(f"frame length {n} is not a multiple of 128")
     check_window_bounds(cfg)
-    if sp.device.type == "cpu":
+    if takes_plain_path(sp, "mag_cfar"):
         return mag_cfar_reference(sp, rt, cfg)
-    if sp.device.type != "cuda":
-        raise ValueError(f"mag_cfar takes CPU or CUDA tensors, not {sp.device}")
-    check_cuda_operands(sp.re, sp.im)
-    regs = ca_registers(rt, cfg, n)
-    thr = torch.empty(sp.shape, dtype=torch.float32, device=sp.device)
-    pk = torch.empty(sp.shape, dtype=torch.uint8, device=sp.device)
-    frames = sp.re.numel() // n
-    if frames:
-        with torch.cuda.device(sp.device):
-            rc = _entry()(sp.re.data_ptr(), sp.im.data_ptr(), thr.data_ptr(),
-                          pk.data_ptr(), frames, n, regs,
-                          launch_stream(sp.device))
-        check_launch("mag_cfar", rc)
-        LAUNCHES += 1
-    return CfarOutput(threshold=thr, peaks=pk.view(torch.bool))
+    return launch("mag_cfar", sp, entry("rsp_mag_cfar", ctypes.c_int, CaRegs),
+                  n, ca_registers(rt, cfg, n))
+
+
+# The plain ops carry every CFAR variant, so Kernel C's plain version is
+# Kernel B's.
+mag_gos_cfar_reference = mag_cfar_reference
+
+
+def mag_gos_cfar(spectrum: CLike, rt: RuntimeConfig,
+                 cfg: CfarConfig) -> CfarOutput:
+    """Magnitude + GOS / GOSCA / CASH CFAR (and the CA statistics a GOSCA
+    elaboration selects at runtime) over the last axis of a spectrum
+    ``[..., N]``, N a multiple of 256. Returns threshold float32 and peaks
+    bool."""
+    sp = as_pair(spectrum)
+    n = sp.shape[-1]
+    if n % GOS_TILE:
+        raise ValueError(f"frame length {n} is not a multiple of {GOS_TILE}")
+    check_window_bounds(cfg)
+    if takes_plain_path(sp, "mag_gos_cfar"):
+        return mag_gos_cfar_reference(sp, rt, cfg)
+    return launch("mag_gos_cfar", sp,
+                  entry("rsp_mag_gos_cfar", ctypes.c_int, GosRegs),
+                  n, gos_registers(rt, cfg, n))
+
+
+def fused_mag_gos_dispatch(spectrum: CLike, rt: RuntimeConfig,
+                           cfg: CfarConfig) -> CfarOutput:
+    """The GOSCA tail stage: CA-like registers (``ca_like``) take
+    ``mag_cfar``, the rest ``mag_gos_cfar``. The choice is a host ``if`` on
+    registers, which are host values."""
+    if ca_like(rt, cfg):
+        return mag_cfar(spectrum, rt, cfg)
+    return mag_gos_cfar(spectrum, rt, cfg)

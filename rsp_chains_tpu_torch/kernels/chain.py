@@ -1,15 +1,20 @@
-"""Kernel A, ``chain_ca``: the whole CA chain (FFT, scale, magnitude, CA/GO/SO
-CFAR) in one kernel, and ``fused_chain_ca_op``, the stage that honours the
-FFT-size register.
+"""The whole-chain kernels (FFT, scale, magnitude, CFAR in one kernel) and the
+chain stages that honour the FFT-size and CFAR registers.
 
-Replaces ``rsp_chains_tpu/kernels/chain_pallas.py::fused_chain_ca`` (:841,
-``pallas_call`` :1013) and its dispatch ``fused_chain_ca_op`` (:1402). The CUDA
-source is ``csrc/chain_ca.cu``; it says what bounds the kernel on the H100 and
-how its design answers. The kernel moves 13 bytes per complex sample: 8 in,
-4 + 1 out; the spectrum stays in shared memory.
+* Kernel A, ``chain_ca``: CA/GO/SO. Replaces
+  ``rsp_chains_tpu/kernels/chain_pallas.py::fused_chain_ca`` (:841,
+  ``pallas_call`` :1013); CUDA source ``csrc/chain_ca.cu``.
+* Kernel D, ``chain_gos``: GOS / GOSCA / CASH. Replaces
+  ``chain_pallas.py::fused_chain_gos`` (:1221, ``pallas_call`` :1306); CUDA
+  source ``csrc/chain_gos.cu``.
+* ``fused_chain_ca_op`` and ``fused_chain_gos_op``, the ports of
+  ``chain_pallas.py:1402`` and ``:1350``.
 
-``chain_ca`` launches the kernel for CUDA tensors and uses the plain version,
-``chain_ca_reference``, only for CPU tensors.
+Both kernels share the FFT front ``csrc/fft_radix2.cuh``; each CUDA source says
+what bounds its kernel on the H100 and how its design answers. The spectrum
+stays in shared memory: a kernel reads the IQ pair once and writes threshold
+and peaks once. A wrapper launches its kernel for CUDA tensors and uses the
+plain version (``*_reference``) only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -24,16 +29,12 @@ from ..configs import CfarConfig, FftConfig, RuntimeConfig
 from ..cplx import CLike, as_pair
 from ..ops.cfar import CfarOutput
 from ..ops.fft import check_keep_msb, fft_op, fft_scale
-from . import _build
 from .cfar import (
-    CaRegs, ca_registers, check_cuda_operands, check_launch,
-    check_window_bounds, launch_stream, mag_cfar, mag_cfar_reference,
+    ca_like, ca_registers, check_window_bounds, entry, fused_mag_gos_dispatch,
+    gos_registers, launch, mag_cfar, mag_cfar_reference, takes_plain_path,
 )
 
 FUSABLE_SIZES = (256, 512, 1024)
-
-# Launches of the CUDA kernel in this process; the plain path never adds.
-LAUNCHES = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,31 +45,31 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(tw).to(device)
 
 
-@functools.lru_cache(maxsize=1)
-def _entry():
-    fn = _build.library().rsp_chain_ca
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, CaRegs,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _check_fusable(n: int, fft_cfg: FftConfig) -> None:
+def _check_fusable(name: str, n: int, fft_cfg: FftConfig) -> None:
     """The JAX package's ``presets._fusable_fft`` gate, as errors."""
     if n != fft_cfg.max_size or n not in FUSABLE_SIZES:
-        raise ValueError(f"chain_ca takes frames of max_size in "
+        raise ValueError(f"{name} takes frames of max_size in "
                          f"{FUSABLE_SIZES}, got {n} (max_size "
                          f"{fft_cfg.max_size})")
     if fft_cfg.window is not None or not fft_cfg.use_bit_reverse:
-        raise ValueError("chain_ca computes no window and emits natural order")
+        raise ValueError(f"{name} computes no window and emits natural order")
     check_keep_msb(fft_cfg)
+
+
+def _chain_kernel(name: str, symbol: str, regs, x: CLike,
+                  fft_cfg: FftConfig) -> CfarOutput:
+    """Launch a whole-chain kernel over the CUDA IQ frames ``x``."""
+    n = x.shape[-1]
+    fn = entry(symbol, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+               type(regs))
+    return launch(name, x, fn, _twiddles(n, x.device).data_ptr(),
+                  n.bit_length() - 1, fft_scale(n, fft_cfg), regs)
 
 
 def chain_ca_reference(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
                        cfar_cfg: CfarConfig) -> CfarOutput:
-    """The plain PyTorch version of ``chain_ca``: the full-size ``fft_op``
-    (``torch.fft``) and then ``mag_cfar_reference``."""
+    """The plain PyTorch version of ``chain_ca`` and ``chain_gos``: the
+    full-size ``fft_op`` (``torch.fft``) and then ``mag_cfar_reference``."""
     return mag_cfar_reference(fft_op(as_pair(x), None, fft_cfg), rt, cfar_cfg)
 
 
@@ -77,39 +78,62 @@ def chain_ca(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
     """FFT + magnitude + CA-family CFAR at the full elaborated FFT size over IQ
     frames ``[..., N]``, N = ``fft_cfg.max_size`` in {256, 512, 1024}. Returns
     threshold float32 and peaks bool."""
-    global LAUNCHES
     xp = as_pair(x)
     n = xp.shape[-1]
-    _check_fusable(n, fft_cfg)
+    _check_fusable("chain_ca", n, fft_cfg)
     check_window_bounds(cfar_cfg)
-    if xp.device.type == "cpu":
+    if takes_plain_path(xp, "chain_ca"):
         return chain_ca_reference(xp, rt, fft_cfg, cfar_cfg)
-    if xp.device.type != "cuda":
-        raise ValueError(f"chain_ca takes CPU or CUDA tensors, not {xp.device}")
-    check_cuda_operands(xp.re, xp.im)
-    regs = ca_registers(rt, cfar_cfg, n)
-    thr = torch.empty(xp.shape, dtype=torch.float32, device=xp.device)
-    pk = torch.empty(xp.shape, dtype=torch.uint8, device=xp.device)
-    frames = xp.re.numel() // n
-    if frames:
-        tw = _twiddles(n, xp.device)
-        with torch.cuda.device(xp.device):
-            rc = _entry()(xp.re.data_ptr(), xp.im.data_ptr(), tw.data_ptr(),
-                          thr.data_ptr(), pk.data_ptr(), frames,
-                          n.bit_length() - 1, fft_scale(n, fft_cfg), regs,
-                          launch_stream(xp.device))
-        check_launch("chain_ca", rc)
-        LAUNCHES += 1
-    return CfarOutput(threshold=thr, peaks=pk.view(torch.bool))
+    return _chain_kernel("chain_ca", "rsp_chain_ca",
+                         ca_registers(rt, cfar_cfg, n), xp, fft_cfg)
+
+
+# The plain ops carry every CFAR variant, so Kernel D's plain version is
+# Kernel A's.
+chain_gos_reference = chain_ca_reference
+
+
+def chain_gos(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
+              cfar_cfg: CfarConfig) -> CfarOutput:
+    """FFT + magnitude + GOS / GOSCA / CASH CFAR at the full elaborated FFT
+    size over IQ frames ``[..., N]``, N = ``fft_cfg.max_size`` in {256, 512,
+    1024}. Returns threshold float32 and peaks bool."""
+    xp = as_pair(x)
+    n = xp.shape[-1]
+    _check_fusable("chain_gos", n, fft_cfg)
+    check_window_bounds(cfar_cfg)
+    if takes_plain_path(xp, "chain_gos"):
+        return chain_gos_reference(xp, rt, fft_cfg, cfar_cfg)
+    return _chain_kernel("chain_gos", "rsp_chain_gos",
+                         gos_registers(rt, cfar_cfg, n), xp, fft_cfg)
+
+
+def _full_size(rt: RuntimeConfig, fft_cfg: FftConfig) -> bool:
+    return not fft_cfg.runtime_size or rt.log2_fft_size >= fft_cfg.log2_max
 
 
 def fused_chain_ca_op(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
                       cfar_cfg: CfarConfig) -> CfarOutput:
-    """The chain stage: the full-size FFT register (the deployment hot path)
-    runs ``chain_ca``; a smaller runtime size runs ``fft_op`` and then
+    """The CA chain stage: the full-size FFT register (the deployment hot
+    path) runs ``chain_ca``; a smaller runtime size runs ``fft_op`` and then
     ``mag_cfar`` on the spectrum. The choice is a host ``if`` on the
     register, which is a host value."""
     xp = as_pair(x)
-    if not fft_cfg.runtime_size or rt.log2_fft_size >= fft_cfg.log2_max:
+    if _full_size(rt, fft_cfg):
         return chain_ca(xp, rt, fft_cfg, cfar_cfg)
     return mag_cfar(fft_op(xp, rt.log2_fft_size, fft_cfg), rt, cfar_cfg)
+
+
+def fused_chain_gos_op(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
+                       cfar_cfg: CfarConfig) -> CfarOutput:
+    """The GOSCA chain stage. At the full FFT size, CA-like registers
+    (``kernels.cfar.ca_like``) run ``chain_ca`` and the rest ``chain_gos``; a
+    smaller runtime size runs ``fft_op`` and then ``fused_mag_gos_dispatch``.
+    The choices are host ``if``s on registers, which are host values."""
+    xp = as_pair(x)
+    if _full_size(rt, fft_cfg):
+        if ca_like(rt, cfar_cfg):
+            return chain_ca(xp, rt, fft_cfg, cfar_cfg)
+        return chain_gos(xp, rt, fft_cfg, cfar_cfg)
+    return fused_mag_gos_dispatch(fft_op(xp, rt.log2_fft_size, fft_cfg), rt,
+                                  cfar_cfg)

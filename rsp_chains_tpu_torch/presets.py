@@ -1,15 +1,23 @@
 """Preset chain topologies, the port of ``rsp_chains_tpu.presets``. This slice
 carries ``fft_mag_cfar_chain`` (the reference's ``FftMagCfarChainVanilla``
-core) for CA-family elaborations, with the JAX package's routing gates
-(``presets.py:223-286``):
+core), with the JAX package's routing gates (``presets.py:141-147``,
+``:223-286``):
 
-* a CA elaboration with a fusable FFT runs one stage, ``fused_chain_ca_op``
-  (Kernel A, or the FFT and Kernel B for a shrunken FFT-size register);
-* another CA elaboration that the JAX package sends to its fused tail runs the
-  FFT stage and Kernel B, ``mag_cfar``;
-* the rest run the plain ops ``fft_stage`` + ``mag_stage`` + ``cfar_stage``;
-* GOS/GOSCA/CASH, WRAP/REFLECT edges, fixed-point and bit-true elaborations
-  raise ``NotImplementedError`` naming their ROADMAP item.
+* a CA elaboration with a fusable FFT runs one stage, ``fft_mag_cfar_fused``:
+  ``fused_chain_ca_op`` (Kernel A, or the FFT and Kernel B for a shrunken
+  FFT-size register);
+* a GOS or GOSCA elaboration (the default ``ChainConfig()``: GOSCA + CASH)
+  with a fusable FFT runs one stage, ``fft_mag_gos_cfar_fused``:
+  ``fused_chain_gos_op`` (Kernel A or D by the algorithm and mode registers,
+  or the FFT and Kernel B or C for a shrunken FFT-size register);
+* another elaboration that the JAX package sends to its fused tail runs the
+  FFT stage and ``mag_cfar_fused`` (Kernel B) or ``mag_gos_cfar_fused``
+  (Kernel B or C, ``fused_mag_gos_dispatch``);
+* the rest (CA + CASH, WRAP/REFLECT edges, emitted noise or cell under test,
+  the LUT log2) run the plain ops ``fft_stage`` + ``mag_stage`` +
+  ``cfar_stage``;
+* fixed-point and bit-true elaborations raise ``NotImplementedError`` naming
+  their ROADMAP item (``chain.Chain``).
 """
 
 from __future__ import annotations
@@ -18,9 +26,11 @@ from typing import Optional
 
 from .chain import Chain, Stage
 from .configs import ChainConfig
-from .kernels.cfar import fused_tail_kind, mag_cfar
-from .kernels.chain import FUSABLE_SIZES, fused_chain_ca_op
-from .ops.cfar import cfar_op, require_ca_family
+from .kernels.cfar import (
+    GOS_TILE, fused_mag_gos_dispatch, fused_tail_kind, mag_cfar,
+)
+from .kernels.chain import FUSABLE_SIZES, fused_chain_ca_op, fused_chain_gos_op
+from .ops.cfar import cfar_op
 from .ops.fft import fft_op
 from .ops.logmag import logmag
 
@@ -38,16 +48,21 @@ def cfar_stage(cfg: ChainConfig) -> Stage:
 
 
 def tail_stages(cfg: ChainConfig) -> list[Stage]:
-    """The magnitude + CFAR tail: Kernel B where the JAX package runs its
-    fused CA tail, else the plain ops."""
-    if fused_tail_kind(cfg) == "ca" and cfg.fft.max_size % 128 == 0:
+    """The magnitude + CFAR tail: the kernels where the JAX package runs its
+    fused tails (Kernel B for CA; Kernel B or C for GOS/GOSCA), else the plain
+    ops."""
+    kind = fused_tail_kind(cfg)
+    if kind == "ca" and cfg.fft.max_size % 128 == 0:
         return [Stage("mag_cfar_fused",
                       lambda x, rt: mag_cfar(x, rt, cfg.cfar))]
+    if kind == "gos" and cfg.fft.max_size % GOS_TILE == 0:
+        return [Stage("mag_gos_cfar_fused",
+                      lambda x, rt: fused_mag_gos_dispatch(x, rt, cfg.cfar))]
     return [mag_stage(cfg), cfar_stage(cfg)]
 
 
 def _fusable_fft(cfg: ChainConfig) -> bool:
-    """Whether the FFT can run inside Kernel A: a kernel size, no window,
+    """Whether the FFT can run inside Kernels A and D: a kernel size, no window,
     natural order and no LSB-keep stage. ``use_mxu`` is read because the JAX
     package's gate reads it."""
     return (
@@ -63,10 +78,15 @@ def fft_mag_cfar_chain(cfg: Optional[ChainConfig] = None) -> Chain:
     """``process(iq, rt) -> CfarOutput`` over complex frames
     ``[..., max_size]`` (a ``C`` pair or a complex tensor)."""
     cfg = cfg or ChainConfig()
-    require_ca_family(cfg.cfar)
-    if fused_tail_kind(cfg) == "ca" and _fusable_fft(cfg):
+    kind = fused_tail_kind(cfg)
+    if kind == "ca" and _fusable_fft(cfg):
         return Chain(cfg, [Stage(
             "fft_mag_cfar_fused",
             lambda x, rt: fused_chain_ca_op(x, rt, cfg.fft, cfg.cfar),
+        )])
+    if kind == "gos" and _fusable_fft(cfg):
+        return Chain(cfg, [Stage(
+            "fft_mag_gos_cfar_fused",
+            lambda x, rt: fused_chain_gos_op(x, rt, cfg.fft, cfg.cfar),
         )])
     return Chain(cfg, [fft_stage(cfg), *tail_stages(cfg)])

@@ -1,5 +1,6 @@
 """The PyTorch port's main path, ``fft_mag_cfar_chain``, against the JAX
-package's, plus the mirrored configs, the state conversion and the refusals of
+package's, for CA elaborations and for the default ``ChainConfig()`` (GOSCA +
+CASH), plus the mirrored configs, the state conversion and the refusals of
 what is not ported yet.
 
 The JAX side runs its XLA composition (``use_pallas=False``, one compile for
@@ -69,8 +70,8 @@ def _compare(cfg_j, rt_j, cfg_t=None):
     return chain, got
 
 
-# the CA entries of the 13-register sweep of tests/test_no_recompile.py (the
-# CASH and GOS entries are not ported), plus registers it leaves out
+# the CA entries of the 13-register sweep of tests/test_no_recompile.py, plus
+# registers it leaves out (its GOS and CASH entries are in DEFAULT_SWEEP)
 SWEEP = [
     dict(),
     dict(fft_size=256),
@@ -98,6 +99,10 @@ def test_chain_matches_jax_over_register_sweep(regs):
     assert chain.stage_names == ("fft_mag_cfar_fused",)
 
 
+GOSCA = dict(variant=R.CfarVariant.GOSCA, include_cash=True)
+GOS = dict(variant=R.CfarVariant.GOS, include_cash=False)
+
+
 @pytest.mark.parametrize("fft, cfar, stages", [
     (dict(window="hann"), {}, ("fft", "mag_cfar_fused")),
     (dict(use_bit_reverse=False), {}, ("fft", "mag_cfar_fused")),
@@ -105,6 +110,17 @@ def test_chain_matches_jax_over_register_sweep(regs):
     ({}, dict(use_pallas=False), ("fft", "logmag", "cfar")),
     ({}, dict(emit_noise=True), ("fft", "logmag", "cfar")),
     ({}, dict(max_ref_window=128), ("fft", "logmag", "cfar")),
+    ({}, GOSCA, ("fft_mag_gos_cfar_fused",)),
+    ({}, GOS, ("fft_mag_gos_cfar_fused",)),
+    (dict(window="hann"), GOSCA, ("fft", "mag_gos_cfar_fused")),
+    (dict(use_bit_reverse=False), GOS, ("fft", "mag_gos_cfar_fused")),
+    (dict(max_size=2048), dict(max_fft_size=2048, **GOSCA),
+     ("fft", "mag_gos_cfar_fused")),
+    ({}, dict(variant=R.CfarVariant.CA, include_cash=True),
+     ("fft", "logmag", "cfar")),
+    ({}, dict(edge_policy=R.EdgePolicy.WRAP, **GOSCA),
+     ("fft", "logmag", "cfar")),
+    ({}, dict(send_cut=True, **GOS), ("fft", "logmag", "cfar")),
 ])
 def test_routing_follows_the_jax_gates(fft, cfar, stages):
     n = fft.get("max_size", 1024)
@@ -140,15 +156,45 @@ def test_three_tone_detections():
     assert torch.equal(out_c.peaks, out.peaks)
 
 
+# the default elaboration at full width: GOS registers of the JAX bench
+# (bench.py:600-603), modes, ranks, CASH sub-windows, the CA algorithm, the
+# FFT-size and CFAR-size registers
+DEFAULT_SWEEP = [
+    (dict(), {}),
+    (dict(cfar_algorithm=1, index_lagg=16, index_lead=16), {}),
+    (dict(cfar_algorithm=1, cfar_mode=1, index_lagg=8, index_lead=24), {}),
+    (dict(cfar_algorithm=1, cfar_mode=2, index_lagg=0, index_lead=0,
+          peak_grouping=1), {}),
+    (dict(cfar_algorithm=1, ref_window_size=64, guard_window_size=8,
+          div_sum=6, index_lagg=63, index_lead=40), {}),
+    (dict(cfar_algorithm=1, index_lagg=16, index_lead=16),
+     dict(index_lagg=50, index_lead=64)),               # ranks >= the window
+    (dict(cfar_mode=3, sub_window_size=8), {}),
+    (dict(cfar_mode=3, cfar_algorithm=1, sub_window_size=2), {}),
+    (dict(cfar_algorithm=1, index_lagg=16, index_lead=16, mag_mode=3,
+          log_or_linear=0, threshold_scaler=2.0), {}),
+    # sub_w > w: the noise is 0 and the threshold the log-domain scaler
+    (dict(cfar_mode=3, sub_window_size=8, mag_mode=3, log_or_linear=0,
+          threshold_scaler=2.0), dict(sub_window_size=64)),
+    (dict(cfar_algorithm=1, fft_size=512, index_lagg=16, index_lead=16), {}),
+    (dict(cfar_mode=3, cfar_fft_size=768, sub_window_size=4), {}),
+]
+
+
+@pytest.mark.parametrize("regs, raw", DEFAULT_SWEEP)
+def test_default_chain_matches_jax_at_full_width(regs, raw):
+    """``fft_mag_cfar_chain()`` with the default ``ChainConfig()`` (GOSCA +
+    CASH, N = 1024, max_ref_window 64) against the JAX package's default chain
+    on its XLA composition."""
+    rt_j = R.RuntimeConfig.make(**{"fft_size": 1024, "ref_window_size": 32,
+                                   "guard_window_size": 4, **regs})
+    rt_j = dataclasses.replace(rt_j, **{k: np.int32(v) for k, v in raw.items()})
+    chain, _ = _compare(R.ChainConfig(), rt_j, T.ChainConfig())
+    assert T.fft_mag_cfar_chain().stage_names == ("fft_mag_gos_cfar_fused",)
+    assert chain.stage_names == ("fft_mag_gos_cfar_fused",)
+
+
 @pytest.mark.parametrize("cfg, item", [
-    (T.ChainConfig(), "item 4"),
-    (T.ChainConfig(cfar=T.CfarConfig(variant=T.CfarVariant.GOS,
-                                     include_cash=False)), "item 4"),
-    (T.ChainConfig(cfar=T.CfarConfig(variant=T.CfarVariant.CA,
-                                     include_cash=True)), "item 4"),
-    (T.ChainConfig(cfar=T.CfarConfig(variant=T.CfarVariant.CA,
-                                     include_cash=False,
-                                     edge_policy=T.EdgePolicy.WRAP)), "item 4"),
     (T.ChainConfig(cfar=T.CfarConfig(variant=T.CfarVariant.CA,
                                      include_cash=False),
                    fixed_point=T.FixedPointConfig(enabled=True)), "item 5"),
@@ -156,6 +202,7 @@ def test_three_tone_detections():
                                      include_cash=False),
                    fixed_point=T.FixedPointConfig(enabled=True,
                                                   bit_true=True)), "item 5"),
+    (T.ChainConfig(fixed_point=T.FixedPointConfig(enabled=True)), "item 5"),
 ])
 def test_elaborations_not_ported_raise(cfg, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):

@@ -8,6 +8,8 @@ Bar: the bench's, max|dthr| / max|thr| < 1e-4 (the kernel's radix-2 fp32 FFT
 and direct window sums round differently from torch.fft and the dyadic box
 sums) and peak flips <= 1e-5 of the cells."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -71,9 +73,9 @@ def test_chain_ca_matches_reference(dev, n, regs):
     cfg = _cfg(n)
     x = _iq((37, n), dev)
     rt = rsp.RuntimeConfig.make(**{"fft_size": n, **regs})
-    before = kchain.LAUNCHES
+    before = _build.LAUNCHES["chain_ca"]
     got = kchain.chain_ca(x, rt, cfg.fft, cfg.cfar)
-    assert kchain.LAUNCHES == before + 1
+    assert _build.LAUNCHES["chain_ca"] == before + 1
     _assert_close(got, kchain.chain_ca_reference(x, rt, cfg.fft, cfg.cfar))
 
 
@@ -84,9 +86,9 @@ def test_mag_cfar_matches_reference(dev, n, regs):
     spec = _iq((2, 19, n), dev, seed=1)
     rt = rsp.RuntimeConfig.make(**{"fft_size": 1024, "cfar_fft_size": n,
                                    **regs})
-    before = kcfar.LAUNCHES
+    before = _build.LAUNCHES["mag_cfar"]
     got = kcfar.mag_cfar(spec, rt, cfg.cfar)
-    assert kcfar.LAUNCHES == before + 1
+    assert _build.LAUNCHES["mag_cfar"] == before + 1
     _assert_close(got, kcfar.mag_cfar_reference(spec, rt, cfg.cfar))
 
 
@@ -114,9 +116,9 @@ def test_shrunken_fft_register_takes_mag_cfar(dev):
     cfg = _cfg(1024)
     x = _iq((4, 1024), dev)
     rt = rsp.RuntimeConfig.make(fft_size=128)
-    before = kcfar.LAUNCHES
+    before = _build.LAUNCHES["mag_cfar"]
     got = rsp.fft_mag_cfar_chain(cfg)(x, rt)
-    assert kcfar.LAUNCHES == before + 1
+    assert _build.LAUNCHES["mag_cfar"] == before + 1
     want = kcfar.mag_cfar_reference(fft_op(x, rt.log2_fft_size, cfg.fft), rt,
                                     cfg.cfar)
     _assert_close(got, want)
@@ -134,3 +136,139 @@ def test_wrapper_refuses_bad_operands(dev):
         kcfar.mag_cfar(rsp.C(strided, strided), rt, cfg.cfar)
     with pytest.raises(ValueError):
         kcfar.mag_cfar(rsp.C(x.re, x.im.cpu()), rt, cfg.cfar)
+
+
+# ---- the GOSCA kernels: C (mag_gos_cfar) and D (chain_gos) ----
+
+def _gos_cfg(n):
+    """The default elaboration (GOSCA + CASH, max_ref_window 64) at size n."""
+    return rsp.ChainConfig(fft=rsp.FftConfig(max_size=n),
+                           cfar=rsp.CfarConfig(max_fft_size=n))
+
+
+GOS = dict(cfar_algorithm=1, index_lagg=16, index_lead=16)
+# (registers over GOS, registers written raw past make()'s rules)
+GOS_REGS = [
+    (dict(), {}),
+    (dict(cfar_mode=1, index_lagg=8, index_lead=24, peak_grouping=1), {}),
+    (dict(cfar_mode=2, index_lagg=0, index_lead=0, mag_mode=0), {}),
+    (dict(), dict(index_lagg=40, index_lead=64)),
+    (dict(ref_window_size=64, guard_window_size=8, div_sum=6,
+          index_lagg=63, index_lead=5, mag_mode=1), {}),
+    (dict(ref_window_size=2, guard_window_size=1, index_lagg=1,
+          index_lead=0), {}),
+    (dict(mag_mode=3, log_or_linear=0, threshold_scaler=2.0), {}),
+    (dict(cfar_mode=3, sub_window_size=8), {}),
+    (dict(cfar_mode=3, sub_window_size=2, cfar_fft_size=200), {}),
+    (dict(cfar_mode=3, mag_mode=3, log_or_linear=0, threshold_scaler=2.0),
+     dict(sub_window_size=64)),
+    (dict(cfar_algorithm=0, cfar_mode=3, sub_window_size=4), {}),
+    (dict(cfar_algorithm=0, cfar_mode=1), {}),   # CA sums in Kernels C / D
+    (dict(cfar_fft_size=200, peak_grouping=1), {}),
+]
+
+
+def _gos_rt(n, regs, raw):
+    rt = rsp.RuntimeConfig.make(**{"fft_size": n, **GOS, **regs})
+    return dataclasses.replace(rt, **raw)
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024])
+@pytest.mark.parametrize("regs, raw", GOS_REGS)
+def test_chain_gos_matches_reference(dev, n, regs, raw):
+    cfg = _gos_cfg(n)
+    x = _iq((13, n), dev, seed=2)
+    rt = _gos_rt(n, regs, raw)
+    before = _build.LAUNCHES["chain_gos"]
+    got = kchain.chain_gos(x, rt, cfg.fft, cfg.cfar)
+    assert _build.LAUNCHES["chain_gos"] == before + 1
+    _assert_close(got, kchain.chain_gos_reference(x, rt, cfg.fft, cfg.cfar))
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024, 1280])
+@pytest.mark.parametrize("regs, raw", GOS_REGS)
+def test_mag_gos_cfar_matches_reference(dev, n, regs, raw):
+    cfg = _gos_cfg(1024)
+    spec = _iq((2, 7, n), dev, seed=3)
+    rt = _gos_rt(1024, regs, raw)
+    if "cfar_fft_size" not in regs:  # the whole frame is active
+        rt = dataclasses.replace(rt, cfar_fft_size=n)
+    before = _build.LAUNCHES["mag_gos_cfar"]
+    got = kcfar.mag_gos_cfar(spec, rt, cfg.cfar)
+    assert _build.LAUNCHES["mag_gos_cfar"] == before + 1
+    _assert_close(got, kcfar.mag_gos_cfar_reference(spec, rt, cfg.cfar))
+
+
+def test_pure_gos_elaboration_ignores_the_algorithm_register(dev):
+    cfg = rsp.ChainConfig(cfar=rsp.CfarConfig(variant=rsp.CfarVariant.GOS,
+                                              include_cash=False))
+    x = _iq((8, 1024), dev, seed=4)
+    rt = rsp.RuntimeConfig.make(fft_size=1024, index_lagg=6, index_lead=6)
+    assert rt.cfar_algorithm == 0
+    chain = rsp.fft_mag_cfar_chain(cfg)
+    before = _build.LAUNCHES["chain_gos"]
+    got = chain(x, rt)
+    assert _build.LAUNCHES["chain_gos"] == before + 1
+    want = chain(x, rt.merge_regs(cfar_algorithm=1))
+    torch.cuda.synchronize()
+    assert torch.equal(got.threshold, want.threshold)
+    _assert_close(got, kchain.chain_gos_reference(x, rt, cfg.fft, cfg.cfar))
+
+
+@pytest.mark.parametrize("regs, kernel", [
+    (dict(), "chain_ca"),
+    (GOS, "chain_gos"),
+    (dict(cfar_mode=3), "chain_gos"),
+    (dict(GOS, fft_size=512), "mag_gos_cfar"),
+    (dict(fft_size=256), "mag_cfar"),
+])
+def test_default_chain_launches_the_kernel_its_registers_select(dev, regs,
+                                                                 kernel):
+    cfg = rsp.ChainConfig()
+    chain = rsp.fft_mag_cfar_chain()
+    assert chain.stage_names == ("fft_mag_gos_cfar_fused",)
+    x = _iq((4, 1024), dev, seed=5)
+    rt = rsp.RuntimeConfig.make(**{"fft_size": 1024, **regs})
+    before = dict(_build.LAUNCHES)
+    got = chain(x, rt)
+    after = dict(_build.LAUNCHES)
+    assert {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)} == {kernel: 1}
+    plain = dataclasses.replace(
+        cfg, cfar=dataclasses.replace(cfg.cfar, use_pallas=False))
+    _assert_close(got, rsp.fft_mag_cfar_chain(plain)(x, rt))
+
+
+def test_default_chain_three_tone_detections_with_gos_registers(dev):
+    iq = rsp.golden.three_tone_signal(1024, shift_range_factor=12)
+    rt = rsp.RuntimeConfig.make(fft_size=1024, ref_window_size=32,
+                                guard_window_size=4, threshold_scaler=3.5,
+                                div_sum=5, **GOS)
+    out = rsp.fft_mag_cfar_chain()(rsp.as_pair(iq, device=dev), rt)
+    assert np.flatnonzero(out.peaks.cpu().numpy()).tolist() == [0, 128, 256, 512]
+
+
+def test_gos_register_writes_build_once(dev):
+    chain = rsp.fft_mag_cfar_chain()
+    x = _iq((4, 1024), dev)
+    for regs, raw in GOS_REGS:
+        chain(x, _gos_rt(1024, regs, raw))
+    torch.cuda.synchronize()
+    assert _build.BUILDS == 1
+
+
+def test_gos_wrappers_refuse_bad_operands(dev):
+    cfg = _gos_cfg(1024)
+    rt = rsp.RuntimeConfig.make(**GOS)
+    x = _iq((4, 1024), dev)
+    with pytest.raises(ValueError):
+        kchain.chain_gos(rsp.C(x.re.double(), x.im.double()), rt, cfg.fft,
+                         cfg.cfar)
+    strided = torch.zeros(4, 2048, device=dev)[:, ::2]
+    with pytest.raises(ValueError):
+        kcfar.mag_gos_cfar(rsp.C(strided, strided), rt, cfg.cfar)
+    with pytest.raises(ValueError):
+        kcfar.mag_gos_cfar(rsp.C(x.re, x.im.cpu()), rt, cfg.cfar)
+    with pytest.raises(ValueError):
+        kcfar.mag_gos_cfar(rsp.C(x.re[:, :640].contiguous(),
+                                 x.im[:, :640].contiguous()), rt, cfg.cfar)

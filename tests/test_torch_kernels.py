@@ -1,11 +1,13 @@
-"""The plain versions of the port's two kernels against the JAX package's
-Pallas kernels (run in interpret mode, as the JAX package's own tests run them
-on the CPU), and the wrappers' host-side contract. The CUDA kernels themselves
-are checked on the card by tests/test_torch_cuda.py.
+"""The plain versions of the port's kernels against the JAX package's Pallas
+kernels (run in interpret mode, as the JAX package's own tests run them on the
+CPU), and the wrappers' host-side contract: register structs, routing, shape
+checks. The CUDA kernels themselves are checked on the card by
+tests/test_torch_cuda.py.
 
 Bar: max|dthr| / max|thr| < 1e-4, the bench's (the port's torch.fft against
 the Pallas kernel's split-matmul FFT measures ~1e-6); peaks equal."""
 
+import dataclasses
 import re
 
 import jax.numpy as jnp
@@ -14,8 +16,11 @@ import pytest
 import torch
 
 import rsp_chains_tpu as R
-from rsp_chains_tpu.kernels.cfar_pallas import fused_mag_cfar
-from rsp_chains_tpu.kernels.chain_pallas import fused_chain_ca, fused_chain_ca_op
+from rsp_chains_tpu.kernels.cfar_pallas import fused_mag_cfar, fused_mag_gos_cfar
+from rsp_chains_tpu.kernels.chain_pallas import (
+    fused_chain_ca, fused_chain_ca_op, fused_chain_gos,
+)
+from rsp_chains_tpu.ops.fft import fft_op as fft_jax
 
 import rsp_chains_tpu_torch as T
 from rsp_chains_tpu_torch.convert import (
@@ -116,23 +121,29 @@ def test_fused_chain_ca_op_shrunken_size_matches_pallas():
 
 def test_cpu_tensors_take_the_plain_version_without_launching():
     _, cfg = _cfgs(512)
+    gcfg = _gos_cfgs(512)[1]
     x = T.as_pair(_frames((2, 3, 512)))
     rt = T.RuntimeConfig.make(fft_size=512, peak_grouping=1)
     small = rt.merge_regs(fft_size=256, cfar_fft_size=256)
-    launches = (kchain.LAUNCHES, kcfar.LAUNCHES)
+    gos = rt.merge_regs(cfar_algorithm=1)
+    launches = dict(_build.LAUNCHES)
     pairs = [
         (kchain.fused_chain_ca_op(x, rt, cfg.fft, cfg.cfar),
          kchain.chain_ca_reference(x, rt, cfg.fft, cfg.cfar)),
         (kchain.fused_chain_ca_op(x, small, cfg.fft, cfg.cfar),
          kcfar.mag_cfar_reference(fft_op(x, small.log2_fft_size, cfg.fft),
                                   small, cfg.cfar)),
+        (kchain.fused_chain_gos_op(x, gos, gcfg.fft, gcfg.cfar),
+         kchain.chain_gos_reference(x, gos, gcfg.fft, gcfg.cfar)),
+        (kcfar.fused_mag_gos_dispatch(x, gos, gcfg.cfar),
+         kcfar.mag_gos_cfar_reference(x, gos, gcfg.cfar)),
     ]
     for got, want in pairs:
         assert got.threshold.shape == (2, 3, 512)
         assert got.peaks.dtype == torch.bool
         assert torch.equal(got.threshold, want.threshold)
         assert torch.equal(got.peaks, want.peaks)
-    assert (kchain.LAUNCHES, kcfar.LAUNCHES) == launches
+    assert dict(_build.LAUNCHES) == launches
 
 
 def test_wrappers_check_shapes_and_window_bounds():
@@ -199,15 +210,26 @@ def test_mag_mode_above_three_follows_the_plain_logmag():
     assert torch.equal(got.peaks, log2.peaks)
 
 
-def test_register_struct_mirrors_the_cuda_header():
-    """``CaRegs`` is passed by value to the C entry points: its fields must be
-    ``RspCaRegs``'s, in order, with the same types."""
-    header = (_build.CSRC / "ca_cfar.cuh").read_text()
-    body = re.search(r"struct RspCaRegs \{(.*?)\};", header, re.S).group(1)
+def _assert_struct_mirrors(header, struct, regs_cls):
+    text = (_build.CSRC / header).read_text()
+    body = re.search(r"struct %s \{(.*?)\};" % struct, text, re.S).group(1)
     fields = re.findall(r"^\s*(int|float)\s+(\w+);", body, re.M)
     ctypes_names = {"int": "c_int", "float": "c_float"}
     assert [(name, ctypes_names[t]) for t, name in fields] == [
-        (name, ctype.__name__) for name, ctype in kcfar.CaRegs._fields_]
+        (name, ctype.__name__) for name, ctype in regs_cls._fields_]
+
+
+def test_register_struct_mirrors_the_cuda_header():
+    """``CaRegs`` is passed by value to the C entry points: its fields must be
+    ``RspCaRegs``'s, in order, with the same types."""
+    _assert_struct_mirrors("ca_cfar.cuh", "RspCaRegs", kcfar.CaRegs)
+
+
+def test_gos_register_struct_mirrors_the_cuda_header():
+    """The same for ``GosRegs`` and ``RspGosRegs``: the 13 registers of
+    ``fused_mag_gos_cfar``'s scalars, in their order, then the scaler."""
+    _assert_struct_mirrors("gos_cfar.cuh", "RspGosRegs", kcfar.GosRegs)
+    assert len(kcfar.GosRegs._fields_) == 14
 
 
 def test_build_is_named_by_its_sources_and_needs_nvcc(monkeypatch, tmp_path):
@@ -230,3 +252,167 @@ def test_build_is_named_by_its_sources_and_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(cpp, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+# ---- the GOSCA kernels (C: mag_gos_cfar, D: chain_gos) ----
+
+def _gos_cfgs(n, variant=R.CfarVariant.GOSCA, cash=True, wmax=16):
+    cfg_j = R.ChainConfig(
+        fft=R.FftConfig(max_size=n),
+        cfar=R.CfarConfig(max_ref_window=wmax, max_guard_window=4,
+                          variant=variant, include_cash=cash, max_fft_size=n))
+    return cfg_j, chain_config_from_reference(cfg_j)
+
+
+def _rt(raw=None, **regs):
+    """JAX registers from ``make()``, then ``raw`` written past its rules."""
+    rt_j = R.RuntimeConfig.make(**{"fft_size": 256, "ref_window_size": 8,
+                                   "guard_window_size": 2,
+                                   "threshold_scaler": 3.0, **regs})
+    return dataclasses.replace(rt_j, **{k: jnp.asarray(v, jnp.int32)
+                                        for k, v in (raw or {}).items()})
+
+
+# interpret-mode GOS is slow; each point stays a few seconds
+MAG_GOS_REGS = [
+    (dict(cfar_algorithm=1, index_lagg=3, index_lead=5), None),
+    (dict(cfar_algorithm=1, cfar_mode=1, index_lagg=0, index_lead=7,
+          peak_grouping=1), None),
+    (dict(cfar_algorithm=1, cfar_mode=2, ref_window_size=16,
+          mag_mode=3, log_or_linear=0, threshold_scaler=2.0), None),
+    (dict(cfar_algorithm=1, cfar_fft_size=200, peak_grouping=1), None),
+    (dict(cfar_mode=3, ref_window_size=16, sub_window_size=4), None),
+    (dict(cfar_mode=3, cfar_algorithm=1, sub_window_size=3), None),
+    # sub_w > w: no sub-window fits, the noise is 0 and the threshold the
+    # (log-domain) scaler
+    (dict(cfar_mode=3, sub_window_size=4, mag_mode=3, log_or_linear=0,
+          threshold_scaler=2.0), dict(sub_window_size=16)),
+]
+
+
+@pytest.mark.parametrize("regs, raw", MAG_GOS_REGS)
+def test_mag_gos_cfar_reference_matches_pallas(regs, raw):
+    cfg_j, cfg_t = _gos_cfgs(256)
+    spec = _frames((3, 256), seed=7)
+    rt_j = _rt(raw, **regs)
+    want = fused_mag_gos_cfar(jnp.asarray(spec), rt_j, cfg_j.cfar,
+                              interpret=True)
+    got = kcfar.mag_gos_cfar_reference(T.as_pair(spec),
+                                       runtime_from_reference(rt_j.peek()),
+                                       cfg_t.cfar)
+    _assert_matches(got, want)
+
+
+@pytest.mark.parametrize("regs", [
+    dict(cfar_algorithm=1, index_lagg=6, index_lead=2),
+    dict(cfar_algorithm=1, cfar_mode=1, ref_window_size=16,
+         guard_window_size=4, mag_mode=1),
+    dict(cfar_mode=3, sub_window_size=4, peak_grouping=1),
+])
+def test_chain_gos_reference_matches_pallas(regs):
+    cfg_j, cfg_t = _gos_cfgs(256)
+    x = _frames((3, 256), seed=8)
+    rt_j = _rt(**regs)
+    want = fused_chain_gos(R.as_pair(x), rt_j, cfg_j.fft, cfg_j.cfar,
+                           interpret=True)
+    got = kchain.chain_gos_reference(T.as_pair(x),
+                                     runtime_from_reference(rt_j.peek()),
+                                     cfg_t.fft, cfg_t.cfar)
+    _assert_matches(got, want)
+
+
+def test_fused_chain_gos_op_shrunken_size_matches_pallas():
+    """A shrunken FFT-size register leaves Kernel D: the FFT op, then the
+    GOSCA tail's path, in both packages."""
+    cfg_j, cfg_t = _gos_cfgs(256)
+    x = _frames((3, 256), seed=9)
+    rt_j = _rt(fft_size=128, cfar_algorithm=1, index_lagg=4, index_lead=4)
+    want = fused_mag_gos_cfar(fft_jax(R.as_pair(x), rt_j.log2_fft_size,
+                                      cfg_j.fft), rt_j, cfg_j.cfar,
+                              interpret=True)
+    got = kchain.fused_chain_gos_op(T.as_pair(x),
+                                    runtime_from_reference(rt_j.peek()),
+                                    cfg_t.fft, cfg_t.cfar)
+    _assert_matches(got, want)
+
+
+@pytest.mark.parametrize("variant, cash, regs, kernel", [
+    (T.CfarVariant.GOSCA, True, dict(), "ca"),
+    (T.CfarVariant.GOSCA, True, dict(cfar_mode=1), "ca"),
+    (T.CfarVariant.GOSCA, True, dict(cfar_algorithm=1), "gos"),
+    (T.CfarVariant.GOSCA, True, dict(cfar_mode=3), "gos"),
+    (T.CfarVariant.GOSCA, False, dict(cfar_mode=3), "gos"),
+    (T.CfarVariant.GOS, False, dict(), "gos"),
+    (T.CfarVariant.GOS, True, dict(cfar_mode=2), "gos"),
+])
+@pytest.mark.parametrize("fft_size", [256, 128])
+def test_gos_stages_dispatch_on_the_registers(monkeypatch, variant, cash,
+                                              regs, kernel, fft_size):
+    """``fused_chain_gos_op`` and ``fused_mag_gos_dispatch`` choose among the
+    four kernels by host ``if``s: CA algorithm outside CASH mode takes the CA
+    kernels; GOS, CASH mode and a pure-GOS elaboration the GOSCA ones; a
+    shrunken FFT size the spectrum kernels."""
+    calls = []
+    for mod, name in [(kchain, "chain_ca"), (kchain, "chain_gos"),
+                      (kcfar, "mag_cfar"), (kcfar, "mag_gos_cfar")]:
+        monkeypatch.setattr(mod, name, lambda *a, _n=name: calls.append(_n))
+    cfg = T.ChainConfig(fft=T.FftConfig(max_size=256),
+                        cfar=T.CfarConfig(max_ref_window=16, max_guard_window=4,
+                                          variant=variant, include_cash=cash))
+    rt = T.RuntimeConfig.make(**{"fft_size": fft_size, "ref_window_size": 8,
+                                 "guard_window_size": 2, **regs})
+    x = T.as_pair(_frames((2, 256)))
+    kchain.fused_chain_gos_op(x, rt, cfg.fft, cfg.cfar)
+    kcfar.fused_mag_gos_dispatch(x, rt, cfg.cfar)
+    tail = "mag_cfar" if kernel == "ca" else "mag_gos_cfar"
+    first = f"chain_{kernel}" if fft_size == 256 else tail
+    assert calls == [first, tail]
+
+
+def test_gos_registers_resolve_the_elaboration_on_the_host():
+    """``gos_registers`` clamps as ``fused_mag_gos_cfar`` clamps its scalars
+    and resolves mode and algorithm as ``cfar_op`` does."""
+    cfg = T.CfarConfig(max_ref_window=32, max_guard_window=4)
+    rt = T.RuntimeConfig.make(ref_window_size=64, guard_window_size=9,
+                              mag_mode=7, cfar_fft_size=5000, cfar_mode=3,
+                              cfar_algorithm=1, threshold_scaler=0.1)
+    rt = dataclasses.replace(rt, index_lagg=-3, index_lead=99,
+                             sub_window_size=1)
+    regs = kcfar.gos_registers(rt, cfg, 1024)
+    assert (regs.log2w, regs.guard, regs.mag_mode) == (5, 4, 3)
+    assert (regs.active_lo, regs.active_hi) == (0, 1024)
+    assert (regs.rank_lagg, regs.rank_lead, regs.sub_w) == (0, 31, 2)
+    assert (regs.cfar_mode, regs.algorithm) == (3, 1)
+    assert regs.scaler == float(np.float32(0.1))
+    no_cash = dataclasses.replace(cfg, include_cash=False)
+    assert kcfar.gos_registers(rt, no_cash, 1024).cfar_mode == 0
+    pure = dataclasses.replace(cfg, variant=T.CfarVariant.GOS)
+    ca_reg = dataclasses.replace(rt, cfar_algorithm=0, cfar_mode=1)
+    assert kcfar.gos_registers(ca_reg, pure, 1024).algorithm == 1
+    assert kcfar.gos_registers(ca_reg, cfg, 1024).algorithm == 0
+    assert kcfar.gos_registers(dataclasses.replace(rt, cfar_fft_size=700),
+                               cfg, 1024).active_hi == 700
+
+
+def test_gos_wrappers_check_shapes_and_window_bounds():
+    _, cfg = _gos_cfgs(1024)
+    rt = T.RuntimeConfig.make(cfar_algorithm=1)
+    with pytest.raises(ValueError):       # N % 256
+        kcfar.mag_gos_cfar(T.as_pair(_frames((2, 384))), rt, cfg.cfar)
+    # the halo-extended length of the sharded tail is a multiple of 256
+    out = kcfar.mag_gos_cfar(T.as_pair(_frames((1, 1280))), rt, cfg.cfar)
+    assert out.threshold.shape == (1, 1280)
+    with pytest.raises(ValueError):       # N is not the elaborated max_size
+        kchain.chain_gos(T.as_pair(_frames((2, 512))), rt, cfg.fft, cfg.cfar)
+    with pytest.raises(ValueError):       # a window is not in the kernel
+        kchain.chain_gos(T.as_pair(_frames((2, 1024))), rt,
+                         T.FftConfig(max_size=1024, window="hann"), cfg.cfar)
+    reach = T.CfarConfig(max_ref_window=64, max_guard_window=64)
+    with pytest.raises(ValueError):       # max_ref + max_guard + 1 > 128
+        kcfar.mag_gos_cfar(T.as_pair(_frames((2, 1024))), rt, reach)
+    meta = T.C(torch.empty(2, 1024, device="meta"),
+               torch.empty(2, 1024, device="meta"))
+    with pytest.raises(ValueError):       # neither CPU nor CUDA
+        kchain.chain_gos(meta, rt, cfg.fft, cfg.cfar)
+    with pytest.raises(ValueError):
+        kcfar.mag_gos_cfar(meta, rt, cfg.cfar)

@@ -4,6 +4,7 @@ The same inputs, made with numpy from a seed, go through both. Bar: relative
 error max|d| / max|want| < 1e-4, the bench's threshold bar; torch.fft against
 the JAX four-step FFT measures ~1e-6. Peaks must be equal."""
 
+import dataclasses
 import functools
 
 import jax
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 import rsp_chains_tpu as R
+from rsp_chains_tpu.golden.models import cfar_golden
 from rsp_chains_tpu.ops.cfar import cfar_op as cfar_jax
 from rsp_chains_tpu.ops.fft import fft_op as fft_jax
 from rsp_chains_tpu.ops.logmag import logmag as logmag_jax
@@ -143,17 +145,17 @@ CFAR_J = R.CfarConfig(max_ref_window=64, max_guard_window=8,
                       variant=R.CfarVariant.CA, include_cash=False)
 
 
-def _check_cfar(rt_j, seed=0, shape=(4, 256), **active):
+def _check_cfar(rt_j, seed=0, shape=(4, 256), cfg_j=CFAR_J, **active):
     mag = np.array(logmag_jax(R.as_pair(_frames(shape, seed).astype(
         np.complex64)), rt_j.mag_mode))
-    want = cfar_jax(jnp.asarray(mag), rt_j, CFAR_J,
+    want = cfar_jax(jnp.asarray(mag), rt_j, cfg_j,
                     **{k: jnp.int32(v) for k, v in active.items()})
     got = cfar_op(torch.from_numpy(mag), runtime_from_reference(rt_j.peek()),
-                  chain_config_from_reference(R.ChainConfig(cfar=CFAR_J)).cfar,
+                  chain_config_from_reference(R.ChainConfig(cfar=cfg_j)).cfar,
                   **active)
     assert _rel(got.threshold.numpy(), want.threshold) < REL
     np.testing.assert_array_equal(got.peaks.numpy(), np.asarray(want.peaks))
-    return got
+    return got, mag
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2])
@@ -165,9 +167,9 @@ def test_cfar_op_matches_jax(mode, w, g):
 
 
 def test_cfar_op_peak_grouping_matches_jax():
-    out = _check_cfar(R.RuntimeConfig.make(fft_size=256, ref_window_size=16,
-                                           guard_window_size=2,
-                                           peak_grouping=1))
+    out, _ = _check_cfar(R.RuntimeConfig.make(fft_size=256, ref_window_size=16,
+                                              guard_window_size=2,
+                                              peak_grouping=1))
     assert out.peaks.any()
 
 
@@ -179,11 +181,11 @@ def test_cfar_op_log_mode_matches_jax():
 
 @pytest.mark.parametrize("cfar_fft_size", [128, 200])
 def test_cfar_op_shrunken_active_range_matches_jax(cfar_fft_size):
-    out = _check_cfar(R.RuntimeConfig.make(fft_size=256,
-                                           cfar_fft_size=cfar_fft_size,
-                                           ref_window_size=16,
-                                           guard_window_size=2,
-                                           peak_grouping=1))
+    out, _ = _check_cfar(R.RuntimeConfig.make(fft_size=256,
+                                              cfar_fft_size=cfar_fft_size,
+                                              ref_window_size=16,
+                                              guard_window_size=2,
+                                              peak_grouping=1))
     assert not out.threshold[..., cfar_fft_size:].any()
     assert not out.peaks[..., cfar_fft_size:].any()
 
@@ -200,18 +202,143 @@ def test_cfar_op_clamps_windows_to_elaborated_maxima_like_jax():
                                      guard_window_size=12))
 
 
-@pytest.mark.parametrize("cfg", [
-    T.CfarConfig(variant=T.CfarVariant.GOS, include_cash=False),
-    T.CfarConfig(variant=T.CfarVariant.GOSCA),
-    T.CfarConfig(variant=T.CfarVariant.CA, include_cash=True),
-    T.CfarConfig(variant=T.CfarVariant.CA, include_cash=False,
-                 edge_policy=T.EdgePolicy.WRAP),
-    T.CfarConfig(variant=T.CfarVariant.CA, include_cash=False,
-                 edge_policy=T.EdgePolicy.REFLECT),
+def _cfar_cfg(variant="GOSCA", cash=True, edge="PARTIAL", wmax=64, gmax=8):
+    return R.CfarConfig(max_ref_window=wmax, max_guard_window=gmax,
+                        variant=R.CfarVariant[variant], include_cash=cash,
+                        edge_policy=R.EdgePolicy[edge])
+
+
+def _raw(rt_j, **writes):
+    """Registers written raw, past ``make()``'s rules, as a register write on
+    a running chain can write them."""
+    return dataclasses.replace(
+        rt_j, **{k: jnp.asarray(v, jnp.int32) for k, v in writes.items()})
+
+
+def _golden(mag, rt_j, cfg_j):
+    """``cfar_golden`` at the registers as the elaboration resolves them: the
+    algorithm register is read only by GOSCA, CASH mode only where CASH is
+    elaborated, the sub-window clamped to [min_sub_window, max_ref_window]."""
+    r = {k: np.asarray(v).item() for k, v in rt_j.peek().items()}
+    mode = min(max(r["cfar_mode"], 0), 3)
+    if mode == 3 and not cfg_j.include_cash:
+        mode = 0
+    if cfg_j.variant is R.CfarVariant.GOSCA:
+        algorithm = int(r["cfar_algorithm"] == 1)
+    else:
+        algorithm = int(cfg_j.variant is R.CfarVariant.GOS)
+    return cfar_golden(
+        mag, ref_window=r["ref_window_size"], guard_window=r["guard_window_size"],
+        threshold_scaler=r["threshold_scaler"], mode=mode, algorithm=algorithm,
+        div_sum=r["div_sum"], index_lagg=r["index_lagg"],
+        index_lead=r["index_lead"],
+        sub_window=min(max(r["sub_window_size"], cfg_j.min_sub_window),
+                       cfg_j.max_ref_window),
+        log_or_linear=r["log_or_linear"], peak_grouping=r["peak_grouping"],
+        edge_policy=cfg_j.edge_policy.value)
+
+
+# (elaboration, registers, raw register writes): modes x algorithm x ranks
+# (clamped ones too) x CASH sub-windows x edge policies
+GOS_CASES = [
+    ({}, dict(cfar_algorithm=1, ref_window_size=16, guard_window_size=2,
+              index_lagg=5, index_lead=5), {}),
+    ({}, dict(cfar_algorithm=1, cfar_mode=1, index_lagg=8, index_lead=24), {}),
+    ({}, dict(cfar_algorithm=1, cfar_mode=2, ref_window_size=8,
+              guard_window_size=2, index_lagg=0, index_lead=0), {}),
+    ({}, dict(cfar_algorithm=1, ref_window_size=16, guard_window_size=2),
+     dict(index_lagg=40, index_lead=63)),             # ranks >= the window
+    ({}, dict(cfar_algorithm=1, ref_window_size=64, guard_window_size=8,
+              index_lagg=60, index_lead=3), {}),
+    ({}, dict(cfar_algorithm=1, mag_mode=3, log_or_linear=0,
+              threshold_scaler=2.0, ref_window_size=16, guard_window_size=2,
+              peak_grouping=1), {}),
+    ({}, dict(cfar_algorithm=0, cfar_mode=1, ref_window_size=16,
+              guard_window_size=2), {}),                # CA in GOSCA
+    ({}, dict(cfar_mode=3, ref_window_size=16, guard_window_size=2,
+              sub_window_size=4), {}),
+    ({}, dict(cfar_mode=3, cfar_algorithm=1, ref_window_size=64,
+              guard_window_size=8, sub_window_size=2), {}),
+    ({}, dict(cfar_mode=3, ref_window_size=8, guard_window_size=2,
+              sub_window_size=4), dict(sub_window_size=16)),  # sub_w > w
+    (dict(cash=False), dict(cfar_mode=3, ref_window_size=16,
+                            guard_window_size=2), {}),   # CASH -> CA
+    (dict(cash=False), dict(cfar_mode=3, cfar_algorithm=1,
+                            ref_window_size=16, guard_window_size=2), {}),
+    (dict(variant="GOS", cash=False), dict(cfar_mode=1, ref_window_size=16,
+                                           guard_window_size=2), {}),
+    (dict(variant="GOS"), dict(cfar_mode=3, ref_window_size=16,
+                               guard_window_size=2, sub_window_size=8), {}),
+    (dict(variant="CA"), dict(cfar_mode=3, ref_window_size=16,
+                              guard_window_size=2, sub_window_size=4), {}),
+    (dict(variant="CA"), dict(cfar_mode=2, ref_window_size=16,
+                              guard_window_size=2), {}),
+    (dict(variant="CA", cash=False, edge="WRAP"), dict(ref_window_size=16,
+                                                       guard_window_size=2), {}),
+    (dict(variant="CA", cash=False, edge="REFLECT"),
+     dict(cfar_mode=1, ref_window_size=32, guard_window_size=4), {}),
+    (dict(edge="WRAP"), dict(cfar_algorithm=1, cfar_mode=2,
+                             ref_window_size=16, guard_window_size=2), {}),
+    (dict(edge="REFLECT"), dict(cfar_mode=3, ref_window_size=16,
+                                guard_window_size=2, sub_window_size=4), {}),
+    (dict(edge="REFLECT"), dict(cfar_algorithm=1, ref_window_size=64,
+                                guard_window_size=8, index_lagg=20,
+                                index_lead=50, peak_grouping=1), {}),
+]
+
+
+@pytest.mark.parametrize("elab, regs, raw", GOS_CASES)
+def test_cfar_op_gos_cash_edges_match_jax_and_golden(elab, regs, raw):
+    cfg_j = _cfar_cfg(**elab)
+    rt_j = _raw(R.RuntimeConfig.make(**{"fft_size": 256, **regs}), **raw)
+    got, mag = _check_cfar(rt_j, cfg_j=cfg_j)
+    thr_g, pk_g = _golden(mag, rt_j, cfg_j)
+    assert _rel(got.threshold.numpy(), thr_g) < REL
+    np.testing.assert_array_equal(got.peaks.numpy(), pk_g)
+
+
+@pytest.mark.parametrize("regs", [
+    dict(cfar_algorithm=1, cfar_fft_size=200, peak_grouping=1),
+    dict(cfar_algorithm=1, cfar_mode=2, cfar_fft_size=130),
+    dict(cfar_mode=3, sub_window_size=4, cfar_fft_size=200),
 ])
-def test_cfar_op_refuses_what_is_not_ported(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        cfar_op(torch.zeros(2, 256), T.RuntimeConfig.make(fft_size=256), cfg)
+def test_cfar_op_gos_shrunken_active_range_matches_jax(regs):
+    out, _ = _check_cfar(R.RuntimeConfig.make(
+        **{"fft_size": 256, "ref_window_size": 16, "guard_window_size": 2,
+           **regs}), cfg_j=_cfar_cfg())
+    hi = regs["cfar_fft_size"]
+    assert not out.threshold[..., hi:].any()
+    assert not out.peaks[..., hi:].any()
+
+
+@pytest.mark.parametrize("regs", [
+    dict(cfar_algorithm=1, index_lagg=3, index_lead=12, peak_grouping=1),
+    dict(cfar_mode=3, sub_window_size=4),
+])
+def test_cfar_op_gos_explicit_active_bounds_match_jax(regs):
+    _check_cfar(R.RuntimeConfig.make(**{"fft_size": 256, "ref_window_size": 16,
+                                        "guard_window_size": 2, **regs}),
+                cfg_j=_cfar_cfg(), active_lo=17, active_hi=230)
+
+
+def test_cfar_op_pure_gos_ignores_the_algorithm_register():
+    """A pure-GOS elaboration has no CA datapath, so the algorithm register's
+    default 0 still gives order statistics: the port follows JAX ``cfar_op``
+    and the golden model with ``algorithm=1`` (the JAX package's float Pallas
+    GOS kernels read the register and give CA statistics here)."""
+    cfg_j = _cfar_cfg(variant="GOS", cash=False, wmax=16, gmax=4)
+    regs = dict(fft_size=256, ref_window_size=8, guard_window_size=2,
+                index_lagg=6, index_lead=6, threshold_scaler=3.0)
+    rt_j = R.RuntimeConfig.make(cfar_algorithm=0, **regs)
+    got, mag = _check_cfar(rt_j, shape=(2, 256), cfg_j=cfg_j)
+    thr_g, pk_g = cfar_golden(mag, ref_window=8, guard_window=2,
+                              threshold_scaler=3.0, algorithm=1,
+                              index_lagg=6, index_lead=6)
+    assert _rel(got.threshold.numpy(), thr_g) < REL
+    np.testing.assert_array_equal(got.peaks.numpy(), pk_g)
+    gos, _ = _check_cfar(R.RuntimeConfig.make(cfar_algorithm=1, **regs),
+                         shape=(2, 256), cfg_j=cfg_j)
+    assert torch.equal(got.threshold, gos.threshold)
 
 
 def test_cfar_op_emits_noise_and_cut_when_elaborated():
