@@ -1,30 +1,48 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA card.
+"""Drive the PyTorch port's main paths once on one NVIDIA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. prints the card's name and power limit, and exits non-zero when CUDA is not
    available (there is no CPU fallback);
-2. builds the CUDA kernels from ``rsp_chains_tpu_torch/csrc``;
-3. holds each of the four kernels against its plain PyTorch version at the
+2. builds the CUDA kernels from ``rsp_chains_tpu_torch/csrc``, one ``nvcc`` a
+   source, all in parallel;
+3. holds each of the seven kernels against its plain PyTorch version at the
    headline shape, one CPI batch of 64 channels x 256 pulses x 1024 samples:
    Kernels A and B under a CA elaboration, Kernels C and D under the default
-   ``ChainConfig()`` (GOSCA + CASH) with GOS registers. The plain GOS versions
+   ``ChainConfig()`` (GOSCA + CASH) with GOS registers, Kernel E on the beat
+   words of the frames quantized as the JAX bench quantizes them (x 250,
+   rounded, clipped to +-32767), Kernels F and G on the same integers under
+   the bit-true CA and GOSCA + CASH elaborations. The plain GOS versions
    gather every cell's window (4.3 GB a side at this shape), so they run, and
    are compared and timed, over 8-channel chunks;
-4. runs ``fft_mag_cfar_chain`` over a register sweep against the plain chain,
-   once for the CA elaboration at the full batch and once for the default
-   elaboration on an 8-channel slice, each with the launch counters reset just
-   before and read just after, and checks the three-tone detections of both;
-5. times each kernel and its plain version, and both chains, with CUDA events;
+4. drives the public entry points over register sweeps, each path with the
+   launch counters set to 0 just before it and read just after, each point
+   asserting the kernel (or the integer ops) it took: ``fft_mag_cfar_chain``
+   for the CA elaboration at the full batch and for the default elaboration,
+   the bit-true CA and bit-true GOSCA elaborations on 8-channel slices and
+   at the integer kernels' frame bound, N = 16384, and
+   ``rx_fft_mag_cfar_tx_chain`` for the float CA and the bit-true
+   elaborations; it checks the three-tone detections of the float and
+   bit-true chains;
+5. times each kernel and its plain version, and the chains, with CUDA events;
 6. profiles the full-size kernel path, the plain path, the shrunken-size
-   kernel path and the default chain's GOS path: device time per call of each
-   stage and of the busiest device kernels, and the device memory a call
-   allocates beyond its inputs.
+   kernel path, the default chain's GOS path and the bit-true GOSCA chain's
+   GOS path: device time per call of each stage and of the busiest device
+   kernels, and the device memory a call allocates beyond its inputs.
 
-The bar is the bench's (``bench.py:404``): max|dthr| / max|thr| < 1e-4 and
-peak flips <= 1e-5 of the cells. Any failed check raises. The last line is the
-JSON device record; the line before it lists the kernels.
+Bars: for the float kernels the bench's (``bench.py:404``), max|dthr| /
+max|thr| < 1e-4 and peak flips <= 1e-5 of the cells; for the wire kernel the
+bench's wire bar (``bench.py:655-679``), bins equal, the threshold field
+within 2 LSB and 0.05 LSB on average, peak flips <= 1e-5; for the integer
+kernels and chains equality. Any failed check raises. The last line is the
+JSON device record; the line before it lists the kernels, each with its
+launches on the main paths, its error, its time, its plain version's, and its
+bound: the larger of its bytes over 3.35 TB/s and the least operations the
+function needs over the H100's rate for their type (the FFT's 5 N log2 N a
+frame; for the rank selections, a sorted window that slides by one cell, two
+binary searches a window start). The compares of the kernels' own counting
+selection are printed beside it, not used in the bound.
 """
 
 from __future__ import annotations
@@ -59,6 +77,16 @@ SWEEP = [
 # the JAX bench's GOS registers (bench.py:600-603) over HEADLINE
 GOS_REGS = dict(HEADLINE, cfar_algorithm=1, index_lagg=16, index_lead=16)
 GOS_CHUNK = 8  # channels per call of a plain GOS version
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+# H100 SXM, from the CUDA C++ Programming Guide's instruction throughput
+# (compute capability 9.0) at the clock the fp32 rate implies: compares
+# (fp32 and int32) issue on 64 lanes of an SM a clock against 128 fp32 FMAs
+# (two operations each); int32 adds on 64 more lanes beside 64 int32
+# multiply-adds on the FMA pipe
+CMP_PER_S = FP32_OPS_PER_S / 4
+INT_OPS_PER_S = FP32_OPS_PER_S / 2
+WIRE_LSB_MAX, WIRE_LSB_MEAN = 2, 0.05
 # register settings of the default elaboration's sweep, each written over
 # GOS_REGS, with the kernel each must launch; the third item is written raw,
 # past make()'s rules, as a register write on a running chain can
@@ -85,6 +113,48 @@ GOS_SWEEP = [
     ("CASH cfar_fft_size 768", dict(cfar_mode=3, sub_window_size=4,
                                     cfar_fft_size=768), {}, "chain_gos"),
 ]
+# the bit-true CA elaboration's sweep over HEADLINE: (name, registers, the
+# kernel it must launch, None for the integer ops); "SQR overflow" runs on
+# full-scale frames, where noise * round(scaler * 64) wraps in int32
+INT_SWEEP = [
+    ("int CA JPL", {}, "chain_int"),
+    ("int ABS", dict(mag_mode=0), "chain_int"),
+    ("int SQR", dict(mag_mode=1), "chain_int"),
+    ("int LUT log2", dict(mag_mode=3, log_or_linear=0, threshold_scaler=2.0),
+     None),
+    ("int GO", dict(cfar_mode=1), "chain_int"),
+    ("int SO", dict(cfar_mode=2), "chain_int"),
+    ("int log domain", dict(log_or_linear=0, threshold_scaler=8.0),
+     "chain_int"),
+    ("int grouping", dict(peak_grouping=1), "chain_int"),
+    ("int w64 g8", dict(ref_window_size=64, guard_window_size=8, div_sum=6),
+     "chain_int"),
+    ("int w2 g1", dict(ref_window_size=2, guard_window_size=1, div_sum=1),
+     "chain_int"),
+    ("int fft_size 512", dict(fft_size=512), None),
+    ("int cfar_fft_size 768", dict(cfar_fft_size=768), "chain_int"),
+    ("int SQR overflow", dict(mag_mode=1, div_sum=0, threshold_scaler=64.0),
+     "chain_int"),
+]
+# the bit-true GOSCA + CASH elaboration's sweep over GOS_REGS, as GOS_SWEEP
+INT_GOS_SWEEP = [
+    ("int GOS", {}, {}, "chain_int_gos"),
+    ("int GOS GO", dict(cfar_mode=1), {}, "chain_int_gos"),
+    ("int ranks 8/24", dict(index_lagg=8, index_lead=24), {}, "chain_int_gos"),
+    ("int rank 0", dict(index_lagg=0, index_lead=0), {}, "chain_int_gos"),
+    ("int rank >= window", {}, dict(index_lagg=40, index_lead=64),
+     "chain_int_gos"),
+    ("int CASH", dict(cfar_mode=3, sub_window_size=8), {}, None),
+    ("int algorithm 0", dict(cfar_algorithm=0), {}, "chain_int"),
+    ("int GOS LUT log2", dict(mag_mode=3, log_or_linear=0,
+                              threshold_scaler=2.0), {}, None),
+]
+# the wire tops: (name, registers over HEADLINE, the kernel it must launch)
+WIRE_SWEEP = [
+    ("wire CA", {}, "wire_ca"),
+    ("wire GO grouping", dict(cfar_mode=1, peak_grouping=1), "wire_ca"),
+    ("wire fft_size 512", dict(fft_size=512), "mag_cfar"),
+]
 
 
 def compare(got, want, what: str) -> float:
@@ -107,6 +177,50 @@ def compare(got, want, what: str) -> float:
     if not (rel < REL_BAR and flips <= FLIP_BAR * cells):
         raise AssertionError(f"{what}: outside the bar")
     return dthr
+
+
+def compare_exact(got, want, what: str) -> float:
+    """Check the integer ``got`` equal to the plain ``want``; return
+    max|dthr| (0)."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.threshold.dtype != torch.int32 or got.peaks.dtype != torch.bool:
+        raise AssertionError(f"{what}: threshold {got.threshold.dtype} / "
+                             f"peaks {got.peaks.dtype}")
+    dthr = (got.threshold.long() - want.threshold.long()).abs().max().item()
+    flips = int((got.peaks != want.peaks).sum().item())
+    npk = int(want.peaks.sum().item())
+    print(f"{what}: max|dthr| {dthr}, peak flips {flips} of "
+          f"{want.peaks.numel()} cells, {npk} peaks")
+    if dthr != 0 or flips != 0:
+        raise AssertionError(f"{what}: not exact")
+    return float(dthr)
+
+
+def compare_words(got, want, bw: int, what: str) -> float:
+    """Check packed CFAR words at the bench's wire bar; return the largest
+    threshold-field difference in LSB."""
+    import torch
+
+    from rsp_chains_tpu_torch import packing
+
+    torch.cuda.synchronize()
+    if got.dtype != torch.int32 or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)}")
+    tg, bg, pg = packing.unpack_cfar_words(got, bw)
+    tw, bwant, pw = packing.unpack_cfar_words(want, bw)
+    err = (tg - tw).abs().double()
+    lsb_max, lsb_mean = err.max().item(), err.mean().item()
+    bins = int((bg != bwant).sum().item())
+    flips = int((pg != pw).sum().item())
+    print(f"{what}: threshold field max|d| {lsb_max:.0f} LSB, mean "
+          f"{lsb_mean:.3e} LSB, bin fields differing {bins}, peak flips "
+          f"{flips} of {pw.numel()} cells, {int(pw.sum().item())} peaks")
+    if not (bins == 0 and lsb_max <= WIRE_LSB_MAX
+            and lsb_mean <= WIRE_LSB_MEAN and flips <= FLIP_BAR * pw.numel()):
+        raise AssertionError(f"{what}: outside the wire bar")
+    return lsb_max
 
 
 def time_ms(fn, calls: int = 30, warm: int = 5) -> float:
@@ -193,6 +307,8 @@ def main() -> int:
     from rsp_chains_tpu_torch.kernels import _build
     from rsp_chains_tpu_torch.kernels import cfar as kcfar
     from rsp_chains_tpu_torch.kernels import chain as kchain
+    from rsp_chains_tpu_torch.kernels import int_chain as kint
+    from rsp_chains_tpu_torch.ops.cfar import window_registers
     from rsp_chains_tpu_torch.ops.fft import fft_op
 
     launched = _build.LAUNCHES
@@ -243,6 +359,33 @@ def main() -> int:
                     chunked(lambda c: kcfar.mag_gos_cfar_reference(
                         c, grt, gcfg.cfar), spec),
                     "mag_gos_cfar vs mag_gos_cfar_reference")
+
+    # the wire and bit-true kernels on the frames quantized as the JAX bench
+    # quantizes them (bench.py:651-653, :703-706)
+    def quantized(v):
+        return torch.round(torch.clamp(v * 250, -32767, 32767))
+
+    xq = rsp.C(quantized(x.re), quantized(x.im))
+    xi16 = rsp.C(xq.re.to(torch.int32), xq.im.to(torch.int32))
+    words = rsp.packing.pack_iq(xq)
+    bw = SHAPE[-1].bit_length() - 1
+    err_e = compare_words(kchain.wire_ca(words, rt, cfg.fft, cfg.cfar),
+                          kchain.wire_ca_reference(words, rt, cfg.fft, cfg.cfar),
+                          bw, "wire_ca vs wire_ca_reference")
+    bit_true = rsp.FixedPointConfig(enabled=True, width=16, bin_point=0,
+                                    bit_true=True)
+    icfg = dataclasses.replace(cfg, fixed_point=bit_true)
+    iplain_cfg = dataclasses.replace(plain_cfg, fixed_point=bit_true)
+    igcfg = dataclasses.replace(gcfg, fixed_point=bit_true)
+    igplain_cfg = dataclasses.replace(gplain_cfg, fixed_point=bit_true)
+    err_f = compare_exact(kint.chain_int(xi16, rt, icfg.fft, icfg.cfar),
+                          kint.chain_int_reference(xi16, rt, icfg.fft,
+                                                   icfg.cfar),
+                          "chain_int vs chain_int_reference")
+    err_g = compare_exact(kint.chain_int_gos(xi16, grt, igcfg.fft, igcfg.cfar),
+                          chunked(lambda c: kint.chain_int_gos_reference(
+                              c, grt, igcfg.fft, igcfg.cfar), xi16),
+                          "chain_int_gos vs chain_int_gos_reference")
 
     # ---- the main path through the public entry point ----
     chain = rsp.fft_mag_cfar_chain(cfg)
@@ -305,44 +448,228 @@ def main() -> int:
                                             "mag_gos_cfar", "chain_gos")) < 1:
         raise AssertionError(f"a kernel of the default path never launched: "
                              f"{gos_launches}")
+
+    # ---- the bit-true chains ----
+    ichain = rsp.fft_mag_cfar_chain(icfg)
+    iplain = rsp.fft_mag_cfar_chain(iplain_cfg)
+    igchain = rsp.fft_mag_cfar_chain(igcfg)
+    igplain = rsp.fft_mag_cfar_chain(igplain_cfg)
+    for c in (ichain, igchain):
+        assert c.stage_names == ("fft_mag_cfar_int_fused",), c.stage_names
+    for c in (iplain, igplain):
+        assert c.stage_names == ("fft_int", "logmag_int", "cfar_int"), \
+            c.stage_names
+    xis = rsp.C(xi16.re[:GOS_CHUNK], xi16.im[:GOS_CHUNK])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    full = rsp.C(*(torch.randint(-32767, 32768, xis.re.shape, device=dev,
+                                 generator=gen, dtype=torch.int32)
+                   for _ in range(2)))
+
+    def sweep(path, points, run, check):
+        """Drive one path over its register points with the counters set to
+        0 just before and read just after; each point must launch its kernel
+        once, or no kernel where it names the integer ops."""
+        launched.clear()
+        for name, rt_s, kernel, *args in points:
+            before = dict(launched)
+            check(run(rt_s, *args), name, rt_s, *args)
+            took = {k: v - before.get(k, 0) for k, v in launched.items()
+                    if v != before.get(k, 0)}
+            if took != ({kernel: 1} if kernel else {}):
+                raise AssertionError(f"{path} [{name}] took {took}, not "
+                                     f"{kernel or 'the integer ops'}")
+        got = dict(launched)
+        print(f"{path} launches: {got}")
+        return got
+
+    def int_point(name, kw, kernel):
+        frames = full if name == "int SQR overflow" else xis
+        return name, rsp.RuntimeConfig.make(**{**HEADLINE, **kw}), kernel, frames
+
+    def int_check(out, name, rt_s, frames):
+        compare_exact(out, iplain(frames, rt_s), f"bit-true CA chain [{name}]")
+        if name == "int SQR overflow" and not bool((out.threshold < 0).any()):
+            raise AssertionError("the SQR overflow point did not wrap")
+
+    int_launches = sweep("bit-true CA path",
+                         [int_point(*p) for p in INT_SWEEP],
+                         lambda rt_s, frames: ichain(frames, rt_s), int_check)
+    iq_int = rsp.C(iq.re.to(torch.int32), iq.im.to(torch.int32))
+    idet = np.flatnonzero(ichain(iq_int, rt).peaks.cpu().numpy())
+    igdet = np.flatnonzero(igchain(iq_int, grt).peaks.cpu().numpy())
+    print(f"three-tone detections (bit-true CA; bit-true GOSCA, GOS "
+          f"registers): {idet.tolist()}; {igdet.tolist()}")
+    if idet.tolist() != [0, 128, 256, 512] or igdet.tolist() != idet.tolist():
+        raise AssertionError("bit-true three-tone detections differ from "
+                             "[0, 128, 256, 512]")
+    int_gos_launches = sweep(
+        "bit-true GOSCA path",
+        [(name, dataclasses.replace(
+            rsp.RuntimeConfig.make(**{**GOS_REGS, **kw}), **raw), kernel)
+         for name, kw, raw, kernel in INT_GOS_SWEEP],
+        lambda rt_s: igchain(xis, rt_s),
+        lambda out, name, rt_s: compare_exact(
+            out, igplain(xis, rt_s), f"bit-true GOSCA chain [{name}]"))
+
+    # ---- the bit-true chains at the integer kernels' frame bound ----
+    nb = 1 << kint.MAX_LOG2N
+
+    def at_bound(c):
+        return dataclasses.replace(c, fft=rsp.FftConfig(max_size=nb),
+                                   cfar=dataclasses.replace(c.cfar,
+                                                            max_fft_size=nb))
+
+    xb = rsp.C(*(torch.randint(-8000, 8001, (GOS_CHUNK, nb), device=dev,
+                               generator=gen, dtype=torch.int32)
+                 for _ in range(2)))
+    bound_points = [
+        (f"int CA N {nb}", rsp.RuntimeConfig.make(**{**HEADLINE,
+                                                     "fft_size": nb}),
+         "chain_int", rsp.fft_mag_cfar_chain(at_bound(icfg)),
+         rsp.fft_mag_cfar_chain(at_bound(iplain_cfg))),
+        (f"int GOS N {nb}", rsp.RuntimeConfig.make(**{**GOS_REGS,
+                                                      "fft_size": nb}),
+         "chain_int_gos", rsp.fft_mag_cfar_chain(at_bound(igcfg)),
+         rsp.fft_mag_cfar_chain(at_bound(igplain_cfg)))]
+    int_bound_launches = sweep(
+        f"bit-true path at N {nb}", bound_points,
+        lambda rt_s, top, plain_top: top(xb, rt_s),
+        lambda out, name, rt_s, top, plain_top: compare_exact(
+            out, plain_top(xb, rt_s), f"bit-true chain [{name}]"))
+
+    # ---- the wire tops ----
+    wchain = rsp.rx_fft_mag_cfar_tx_chain(cfg)
+    wplain = rsp.rx_fft_mag_cfar_tx_chain(plain_cfg)
+    iwchain = rsp.rx_fft_mag_cfar_tx_chain(icfg)
+    iwplain = rsp.rx_fft_mag_cfar_tx_chain(iplain_cfg)
+    igwchain = rsp.rx_fft_mag_cfar_tx_chain(igcfg)
+    igwplain = rsp.rx_fft_mag_cfar_tx_chain(igplain_cfg)
+    assert wchain.stage_names == ("rx_fft_mag_cfar_tx_fused",), wchain.stage_names
+    assert igwchain.stage_names == ("rx_unpack", "fft_mag_cfar_int_fused",
+                                    "tx_pack"), igwchain.stage_names
+    ws = words[:GOS_CHUNK]
+
+    def wire_check(out, name, rt_s, top, plain_top):
+        if top is wchain:
+            compare_words(out, plain_top(ws, rt_s), bw, f"wire top [{name}]")
+            return
+        torch.cuda.synchronize()
+        if not torch.equal(out, plain_top(ws, rt_s)):
+            raise AssertionError(f"wire top [{name}]: words not exact")
+        print(f"wire top [{name}]: words exact")
+
+    wire_points = [(name, rsp.RuntimeConfig.make(**{**HEADLINE, **kw}), k,
+                    wchain, wplain) for name, kw, k in WIRE_SWEEP]
+    wire_points += [
+        ("bit-true wire CA", rt, "chain_int", iwchain, iwplain),
+        ("bit-true wire GOSCA, GOS registers", grt, "chain_int_gos", igwchain,
+         igwplain),
+        ("bit-true wire GOSCA, CASH", grt.merge_regs(cfar_mode=3), None,
+         igwchain, igwplain),
+    ]
+    wire_launches = sweep("wire path", wire_points,
+                          lambda rt_s, top, plain_top: top(ws, rt_s),
+                          wire_check)
     if _build.BUILDS != 1:
         raise AssertionError(f"library built {_build.BUILDS} times, not once")
-    launches = {k: ca_launches.get(k, 0) + gos_launches.get(k, 0)
-                for k in ("chain_ca", "mag_cfar", "mag_gos_cfar", "chain_gos")}
+    paths = (ca_launches, gos_launches, int_launches, int_gos_launches,
+             int_bound_launches, wire_launches)
+    launches = {k: sum(p.get(k, 0) for p in paths)
+                for k in ("chain_ca", "mag_cfar", "mag_gos_cfar", "chain_gos",
+                          "wire_ca", "chain_int", "chain_int_gos")}
+    print(f"main-path launches, all paths: {launches}; library builds: "
+          f"{_build.BUILDS}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel never launched on the main paths: "
+                             f"{launches}")
 
     # ---- timing at the headline shape ----
-    moved = 13 * samples  # bytes: 8 in, 4 + 1 out per complex sample
+    def chunk_ms(fn, v):
+        return time_ms(lambda: chunked(fn, v), calls=10, warm=1)
+
     times = {
         "chain_ca": (time_ms(lambda: kchain.chain_ca(x, rt, cfg.fft, cfg.cfar)),
                      time_ms(lambda: kchain.chain_ca_reference(
-                         x, rt, cfg.fft, cfg.cfar))),
+                         x, rt, cfg.fft, cfg.cfar)), 13),
         "mag_cfar": (time_ms(lambda: kcfar.mag_cfar(spec, rt, cfg.cfar)),
                      time_ms(lambda: kcfar.mag_cfar_reference(
-                         spec, rt, cfg.cfar))),
+                         spec, rt, cfg.cfar)), 13),
         "fft_mag_cfar_chain": (time_ms(lambda: chain(x, rt)),
-                               time_ms(lambda: plain(x, rt))),
+                               time_ms(lambda: plain(x, rt)), 13),
         "chain_gos": (time_ms(lambda: kchain.chain_gos(x, grt, gcfg.fft,
                                                         gcfg.cfar)),
-                      time_ms(lambda: chunked(lambda c: kchain.chain_gos_reference(
-                          c, grt, gcfg.fft, gcfg.cfar), x), calls=10, warm=1)),
+                      chunk_ms(lambda c: kchain.chain_gos_reference(
+                          c, grt, gcfg.fft, gcfg.cfar), x), 13),
         "mag_gos_cfar": (time_ms(lambda: kcfar.mag_gos_cfar(spec, grt,
                                                             gcfg.cfar)),
-                         time_ms(lambda: chunked(
-                             lambda c: kcfar.mag_gos_cfar_reference(
-                                 c, grt, gcfg.cfar), spec), calls=10, warm=1)),
+                         chunk_ms(lambda c: kcfar.mag_gos_cfar_reference(
+                             c, grt, gcfg.cfar), spec), 13),
         "default fft_mag_cfar_chain, GOS registers": (
             time_ms(lambda: gchain(x, grt)),
-            time_ms(lambda: chunked(lambda c: gplain(c, grt), x), calls=10,
-                    warm=1)),
+            chunk_ms(lambda c: gplain(c, grt), x), 13),
+        "wire_ca": (time_ms(lambda: kchain.wire_ca(words, rt, cfg.fft,
+                                                    cfg.cfar)),
+                    time_ms(lambda: kchain.wire_ca_reference(
+                        words, rt, cfg.fft, cfg.cfar)), 8),
+        "rx_fft_mag_cfar_tx_chain": (time_ms(lambda: wchain(words, rt)),
+                                     time_ms(lambda: wplain(words, rt)), 8),
+        "chain_int": (time_ms(lambda: kint.chain_int(xi16, rt, icfg.fft,
+                                                      icfg.cfar)),
+                      time_ms(lambda: kint.chain_int_reference(
+                          xi16, rt, icfg.fft, icfg.cfar)), 13),
+        "bit-true fft_mag_cfar_chain": (time_ms(lambda: ichain(xi16, rt)),
+                                        time_ms(lambda: iplain(xi16, rt)), 13),
+        "chain_int_gos": (time_ms(lambda: kint.chain_int_gos(
+            xi16, grt, igcfg.fft, igcfg.cfar)),
+            chunk_ms(lambda c: kint.chain_int_gos_reference(
+                c, grt, igcfg.fft, igcfg.cfar), xi16), 13),
+        "bit-true GOSCA fft_mag_cfar_chain, GOS registers": (
+            time_ms(lambda: igchain(xi16, grt)),
+            chunk_ms(lambda c: igplain(c, grt), xi16), 13),
     }
     print(f"plain GOS times are of the {SHAPE[0]} channels in "
           f"{GOS_CHUNK}-channel chunks")
-    for name, (ms, plain_ms) in times.items():
+    for name, (ms, plain_ms, per) in times.items():
         print(f"{name} at {'x'.join(map(str, SHAPE))}: kernel path {ms:.4f} ms "
               f"= {samples / ms / 1e3:.1f} Msamples/s "
-              f"({moved / ms / 1e6:.1f} GB/s of 13 B/sample); plain path "
-              f"{plain_ms:.4f} ms = {samples / plain_ms / 1e3:.1f} Msamples/s; "
-              f"card {card}")
+              f"({per * samples / ms / 1e6:.1f} GB/s of {per} B/sample); "
+              f"plain path {plain_ms:.4f} ms = "
+              f"{samples / plain_ms / 1e3:.1f} Msamples/s; card {card}")
+
+    # ---- bounds: bytes over the memory rate, least work over the rates ----
+    frames_n = samples // SHAPE[-1]
+    fft_ops = frames_n * 5 * SHAPE[-1] * bw
+    log2w, guard = window_registers(grt, gcfg.cfar)
+    w = 1 << log2w
+    starts = np.arange(-guard - w, SHAPE[-1] + guard + 1)
+    n_act = min(grt.cfar_fft_size, SHAPE[-1])
+    nv = np.clip(np.minimum(starts + w, n_act) - np.maximum(starts, 0), 0, None)
+    # a sorted window sliding one cell a start: a deletion and an insertion,
+    # each a binary search of ceil(log2(w + 1)) compares; both ranks read off
+    sel_least = frames_n * 2 * w.bit_length() * int((nv > 0).sum())
+    # rsp_select2 counts, for each candidate, the cells below and equal to
+    # it: up to 2 nv^2 compares a start, fewer where both ranks turn up early
+    sel_code = frames_n * 2 * int((nv ** 2).sum())
+    print(f"rank selection, {SHAPE[0]}x{SHAPE[1]} frames: least work "
+          f"{sel_least:.4e} compares -> {sel_least / CMP_PER_S * 1e3:.4f} ms; "
+          f"the counting selection's at most {sel_code:.4e} -> "
+          f"{sel_code / CMP_PER_S * 1e3:.4f} ms (not a bound)")
+    # (bytes a sample, fp32 operations, int32 operations, compares)
+    work = {"chain_ca": (13, fft_ops, 0, 0), "mag_cfar": (13, 0, 0, 0),
+            "mag_gos_cfar": (13, 0, 0, sel_least),
+            "chain_gos": (13, fft_ops, 0, sel_least),
+            "wire_ca": (8, fft_ops, 0, 0), "chain_int": (13, 0, fft_ops, 0),
+            "chain_int_gos": (13, 0, fft_ops, sel_least)}
+    bounds = {}
+    for name, (per, f32, i32, cmp) in work.items():
+        byte_ms = per * samples / HBM_BYTES_PER_S * 1e3
+        ops_ms = (f32 / FP32_OPS_PER_S + i32 / INT_OPS_PER_S
+                  + cmp / CMP_PER_S) * 1e3
+        bounds[name] = (max(byte_ms, ops_ms),
+                        "bytes" if byte_ms >= ops_ms else "operations")
+        print(f"bound {name}: {per} B/sample -> {byte_ms:.4f} ms; "
+              f"{f32:.4e} fp32 + {i32:.4e} int32 operations + {cmp:.4e} "
+              f"compares -> {ops_ms:.4f} ms")
 
     # ---- where the time goes ----
     small = rt.merge_regs(fft_size=512)
@@ -353,30 +680,35 @@ def main() -> int:
             chain.stage_names)
     profile(lambda: gchain(x, grt), "default chain, GOS registers",
             gchain.stage_names)
+    profile(lambda: igchain(xi16, grt), "bit-true GOSCA chain, GOS registers",
+            igchain.stage_names)
 
+    errs = {"chain_ca": err_a, "mag_cfar": err_b, "mag_gos_cfar": err_c,
+            "chain_gos": err_d, "wire_ca": err_e, "chain_int": err_f,
+            "chain_int_gos": err_g}
+    sources = {
+        "chain_ca": ("chain_ca.cu", "rsp_chains_tpu/kernels/chain_pallas.py:841"),
+        "mag_cfar": ("mag_cfar.cu", "rsp_chains_tpu/kernels/cfar_pallas.py:489"),
+        "mag_gos_cfar": ("mag_gos_cfar.cu",
+                         "rsp_chains_tpu/kernels/cfar_pallas.py:1593"),
+        "chain_gos": ("chain_gos.cu",
+                      "rsp_chains_tpu/kernels/chain_pallas.py:1221"),
+        "wire_ca": ("wire_ca.cu", "rsp_chains_tpu/kernels/chain_pallas.py:1042"),
+        "chain_int": ("chain_int.cu",
+                      "rsp_chains_tpu/kernels/int_chain_pallas.py:441"),
+        "chain_int_gos": ("chain_int_gos.cu",
+                          "rsp_chains_tpu/kernels/int_chain_pallas.py:552"),
+    }
+    # no one PyTorch call computes FFT + magnitude + CFAR, so library_ms is
+    # null for every kernel
     kernels = [
-        {"name": "chain_ca", "route": "cuda",
-         "source": "rsp_chains_tpu_torch/csrc/chain_ca.cu",
-         "replaces": "rsp_chains_tpu/kernels/chain_pallas.py:841",
-         "launches": launches["chain_ca"], "max_abs_err": err_a,
-         "ms": times["chain_ca"][0], "plain_ms": times["chain_ca"][1]},
-        {"name": "mag_cfar", "route": "cuda",
-         "source": "rsp_chains_tpu_torch/csrc/mag_cfar.cu",
-         "replaces": "rsp_chains_tpu/kernels/cfar_pallas.py:489",
-         "launches": launches["mag_cfar"], "max_abs_err": err_b,
-         "ms": times["mag_cfar"][0], "plain_ms": times["mag_cfar"][1]},
-        {"name": "mag_gos_cfar", "route": "cuda",
-         "source": "rsp_chains_tpu_torch/csrc/mag_gos_cfar.cu",
-         "replaces": "rsp_chains_tpu/kernels/cfar_pallas.py:1593",
-         "launches": launches["mag_gos_cfar"], "max_abs_err": err_c,
-         "ms": times["mag_gos_cfar"][0],
-         "plain_ms": times["mag_gos_cfar"][1]},
-        {"name": "chain_gos", "route": "cuda",
-         "source": "rsp_chains_tpu_torch/csrc/chain_gos.cu",
-         "replaces": "rsp_chains_tpu/kernels/chain_pallas.py:1221",
-         "launches": launches["chain_gos"], "max_abs_err": err_d,
-         "ms": times["chain_gos"][0], "plain_ms": times["chain_gos"][1]},
-    ]
+        {"name": name, "route": "cuda",
+         "source": f"rsp_chains_tpu_torch/csrc/{src}", "replaces": replaces,
+         "launches": launches[name], "max_abs_err": errs[name],
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": None}
+        for name, (src, replaces) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

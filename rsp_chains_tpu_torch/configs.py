@@ -83,11 +83,27 @@ class EdgePolicy(enum.Enum):
 
 @dataclass(frozen=True)
 class FixedPointConfig:
+    """Fixed-point fidelity: ``enabled`` snaps stage boundaries to the
+    ``FixedPoint(width, bin_point)`` grid (``numerics.quantize``);
+    ``bit_true`` runs the exact integer pipeline (``ops.bit_true``) instead."""
+
     enabled: bool = False
     width: int = 16
     bin_point: int = 0
     rounding: Rounding = Rounding.HALF_UP
     bit_true: bool = False
+
+    @property
+    def scale(self) -> float:
+        return float(2 ** self.bin_point)
+
+    @property
+    def max_int(self) -> int:
+        return 2 ** (self.width - 1) - 1
+
+    @property
+    def min_int(self) -> int:
+        return -(2 ** (self.width - 1))
 
 
 @dataclass(frozen=True)

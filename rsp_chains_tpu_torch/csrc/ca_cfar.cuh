@@ -95,16 +95,16 @@ static __device__ __forceinline__ uint8_t rsp_peak(const float* c, int i,
 // `row` points at shared memory holding [RSP_PAD zeros | mag[0..n) | RSP_PAD
 // zeros], with mag already zeroed outside the active range. Every thread of
 // the block takes cells tid, tid + blockDim.x, ...; the caller has
-// synchronised after filling the row. Writes one frame of threshold and peaks.
-static __device__ __forceinline__ void rsp_ca_tail(
-    const float* __restrict__ row, int n, const RspCaRegs& r,
-    float* __restrict__ thr, uint8_t* __restrict__ peaks) {
+// synchronised after filling the row. Hands each cell's threshold and peak
+// flag to `store(i, thr, peak)` (0 and 0 outside the active range).
+template <typename Store>
+static __device__ __forceinline__ void rsp_ca_tail_each(
+    const float* __restrict__ row, int n, const RspCaRegs& r, Store store) {
   const int w = 1 << r.log2w;
   const float inv_div = ldexpf(1.0f, -r.div_sum);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     if (i < r.active_lo || i >= r.active_hi) {
-      thr[i] = 0.0f;
-      peaks[i] = 0;
+      store(i, 0.0f, (uint8_t)0);
       continue;
     }
     const float* c = row + RSP_PAD + i;
@@ -113,7 +113,16 @@ static __device__ __forceinline__ void rsp_ca_tail(
     const float t = rsp_threshold(
         rsp_combine(r.cfar_mode, lag * inv_div, lead * inv_div),
         r.log_or_linear, r.scaler);
-    thr[i] = t;
-    peaks[i] = rsp_peak(c, i, t, r.peak_grouping, r.active_lo, r.active_hi);
+    store(i, t, rsp_peak(c, i, t, r.peak_grouping, r.active_lo, r.active_hi));
   }
+}
+
+// rsp_ca_tail_each writing one frame of threshold and peaks.
+static __device__ __forceinline__ void rsp_ca_tail(
+    const float* __restrict__ row, int n, const RspCaRegs& r,
+    float* __restrict__ thr, uint8_t* __restrict__ peaks) {
+  rsp_ca_tail_each(row, n, r, [&](int i, float t, uint8_t pk) {
+    thr[i] = t;
+    peaks[i] = pk;
+  });
 }

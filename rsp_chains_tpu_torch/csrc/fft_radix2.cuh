@@ -1,4 +1,5 @@
-// The FFT front of the whole-chain kernels (A: chain_ca.cu, D: chain_gos.cu):
+// The FFT front of the float whole-chain kernels (A: chain_ca.cu, D:
+// chain_gos.cu, E: wire_ca.cu):
 // an iterative radix-2 decimation in time in fp32 FMA over one frame in
 // shared memory.
 //
@@ -12,21 +13,15 @@
 // fp32 FMA is not the bound here.
 #pragma once
 
-// Transforms re/im[0 .. 2^log2n) (device memory, one frame) into xr/xi
-// (shared memory, 2^log2n floats each), 1 <= log2n <= 10. Every thread of the
-// block takes part; ends with __syncthreads(), so the spectrum is visible to
-// the whole block on return.
-static __device__ __forceinline__ void rsp_fft_radix2(
-    const float* __restrict__ re, const float* __restrict__ im,
+// The butterfly stages over one frame already in shared memory in
+// bit-reversed order, xr/xi (2^log2n floats each), 1 <= log2n <= 10; the
+// output is in natural order. Every thread of the block takes part; starts
+// and ends with __syncthreads(), so the loads before it and the spectrum
+// after it are visible to the whole block.
+static __device__ __forceinline__ void rsp_fft_radix2_stages(
     const float2* __restrict__ tw, float* xr, float* xi, int log2n) {
   const int n = 1 << log2n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int j = __brev(i) >> (32 - log2n);
-    xr[j] = re[i];
-    xi[j] = im[i];
-  }
   __syncthreads();
-
   for (int s = 1; s <= log2n; ++s) {
     const int half = 1 << (s - 1);
     for (int b = threadIdx.x; b < n / 2; b += blockDim.x) {
@@ -45,4 +40,19 @@ static __device__ __forceinline__ void rsp_fft_radix2(
     }
     __syncthreads();
   }
+}
+
+// Transforms re/im[0 .. 2^log2n) (device memory, one frame) into xr/xi
+// (shared memory, 2^log2n floats each), 1 <= log2n <= 10, as
+// rsp_fft_radix2_stages.
+static __device__ __forceinline__ void rsp_fft_radix2(
+    const float* __restrict__ re, const float* __restrict__ im,
+    const float2* __restrict__ tw, float* xr, float* xi, int log2n) {
+  const int n = 1 << log2n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int j = __brev(i) >> (32 - log2n);
+    xr[j] = re[i];
+    xi[j] = im[i];
+  }
+  rsp_fft_radix2_stages(tw, xr, xi, log2n);
 }

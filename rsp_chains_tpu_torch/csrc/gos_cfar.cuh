@@ -57,19 +57,20 @@ struct RspGosRegs {
   float scaler;
 };
 
-// The k0-th and k1-th smallest of x[0 .. nv), 0 <= k0, k1 < nv. Value v is
-// the k-th smallest exactly when (cells below v) <= k < (cells below v) +
-// (cells equal to v).
-static __device__ __forceinline__ void rsp_select2(const float* x, int nv,
-                                                   int k0, int k1, float& v0,
-                                                   float& v1) {
+// The k0-th and k1-th smallest of x[0 .. nv), 0 <= k0, k1 < nv, for float
+// magnitudes (Kernels C, D) and int32 ones (Kernel G, chain_int_gos.cu).
+// Value v is the k-th smallest exactly when (cells below v) <= k < (cells
+// below v) + (cells equal to v).
+template <typename T>
+static __device__ __forceinline__ void rsp_select2(const T* x, int nv, int k0,
+                                                   int k1, T& v0, T& v1) {
   bool f0 = false, f1 = false;
   v0 = v1 = x[0];
   for (int j = 0; j < nv && !(f0 && f1); ++j) {
-    const float v = x[j];
+    const T v = x[j];
     int below = 0, equal = 0;
     for (int m = 0; m < nv; ++m) {
-      const float u = x[m];
+      const T u = x[m];
       below += u < v;
       equal += u == v;
     }

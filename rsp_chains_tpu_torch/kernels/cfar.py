@@ -157,12 +157,14 @@ def takes_plain_path(x: C, name: str) -> bool:
     return False
 
 
-def check_cuda_operands(*tensors: torch.Tensor) -> None:
-    """The kernels take contiguous float32 planes of one shape on one card."""
+def check_cuda_operands(*tensors: torch.Tensor,
+                        dtype: torch.dtype = torch.float32) -> None:
+    """The kernels take contiguous planes of one dtype and shape on one
+    card."""
     first = tensors[0]
     for t in tensors:
-        if t.device != first.device or t.dtype != torch.float32:
-            raise ValueError("kernel operands must be float32 on one device, "
+        if t.device != first.device or t.dtype != dtype:
+            raise ValueError(f"kernel operands must be {dtype} on one device, "
                              f"got {t.dtype} on {t.device}")
         if t.shape != first.shape or not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous and of one "
@@ -170,34 +172,44 @@ def check_cuda_operands(*tensors: torch.Tensor) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def entry(symbol: str, *argtypes) -> Callable[..., int]:
-    """The library's C entry ``symbol``. Every entry takes ``(re, im, thr,
-    peaks, frames, stream, *kernel arguments)`` and returns
-    ``cudaGetLastError()``; ``argtypes`` are the kernel arguments' types."""
+def entry(symbol: str, *argtypes, pointers: int = 4) -> Callable[..., int]:
+    """The library's C entry ``symbol``. Every entry takes ``pointers``
+    device pointers (``(re, im, thr, peaks)``, or ``(words, out)`` for the
+    wire kernel), the frame count and the stream, then the kernel arguments,
+    whose types are ``argtypes``, and returns ``cudaGetLastError()``."""
     fn = getattr(_build.library(), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p,
-                                           *argtypes]
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int,
+                                                  ctypes.c_void_p, *argtypes]
     fn.restype = ctypes.c_int
     return fn
 
 
-def launch(name: str, x: C, fn: Callable[..., int], *args) -> CfarOutput:
-    """Allocate threshold and peaks for the frames of ``x`` (CUDA), launch the
-    kernel through its C entry ``fn`` with the kernel arguments ``args`` on the
-    current stream, and count the launch under ``name``."""
-    check_cuda_operands(x.re, x.im)
-    thr = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+def call_entry(name: str, device: torch.device, fn: Callable[..., int],
+               head: tuple, tail: tuple) -> None:
+    """Call the C entry ``fn(*head, stream, *tail)`` on the current stream of
+    ``device``, raise if the launch failed, and count it under ``name``."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*head, stream, *tail)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
+    _build.LAUNCHES[name] += 1
+
+
+def launch(name: str, x: C, fn: Callable[..., int], *args,
+           dtype: torch.dtype = torch.float32) -> CfarOutput:
+    """Allocate threshold (of ``dtype``, the input planes' dtype) and peaks
+    for the frames of ``x`` (CUDA), launch the kernel through its C entry
+    ``fn`` with the kernel arguments ``args`` on the current stream, and
+    count the launch under ``name``."""
+    check_cuda_operands(x.re, x.im, dtype=dtype)
+    thr = torch.empty(x.shape, dtype=dtype, device=x.device)
     pk = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     frames = x.re.numel() // x.shape[-1]
     if frames:
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = fn(x.re.data_ptr(), x.im.data_ptr(), thr.data_ptr(),
-                    pk.data_ptr(), frames, stream, *args)
-        if rc != 0:
-            raise RuntimeError(f"{name} kernel launch failed with CUDA error "
-                               f"{rc}")
-        _build.LAUNCHES[name] += 1
+        call_entry(name, x.device, fn,
+                   (x.re.data_ptr(), x.im.data_ptr(), thr.data_ptr(),
+                    pk.data_ptr(), frames), args)
     return CfarOutput(threshold=thr, peaks=pk.view(torch.bool))
 
 

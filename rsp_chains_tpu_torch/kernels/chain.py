@@ -7,10 +7,14 @@ chain stages that honour the FFT-size and CFAR registers.
 * Kernel D, ``chain_gos``: GOS / GOSCA / CASH. Replaces
   ``chain_pallas.py::fused_chain_gos`` (:1221, ``pallas_call`` :1306); CUDA
   source ``csrc/chain_gos.cu``.
-* ``fused_chain_ca_op`` and ``fused_chain_gos_op``, the ports of
-  ``chain_pallas.py:1402`` and ``:1350``.
+* Kernel E, ``wire_ca``: the wire top's CA chain, packed IQ beat words in,
+  packed ``{threshold | bin | peak}`` words out. Replaces
+  ``chain_pallas.py::fused_chain_ca_packed`` (:1042, ``pallas_call`` :1122);
+  CUDA source ``csrc/wire_ca.cu``. It moves 8 bytes per sample, not 13.
+* ``fused_chain_ca_op``, ``fused_chain_gos_op`` and ``fused_wire_chain_op``,
+  the ports of ``chain_pallas.py:1402``, ``:1350`` and ``:1432``.
 
-Both kernels share the FFT front ``csrc/fft_radix2.cuh``; each CUDA source says
+The kernels share the FFT front ``csrc/fft_radix2.cuh``; each CUDA source says
 what bounds its kernel on the H100 and how its design answers. The spectrum
 stays in shared memory: a kernel reads the IQ pair once and writes threshold
 and peaks once. A wrapper launches its kernel for CUDA tensors and uses the
@@ -29,9 +33,11 @@ from ..configs import CfarConfig, FftConfig, RuntimeConfig
 from ..cplx import CLike, as_pair
 from ..ops.cfar import CfarOutput
 from ..ops.fft import check_keep_msb, fft_op, fft_scale
+from ..packing import as_words, pack_cfar_words, unpack_iq_pair
 from .cfar import (
-    ca_like, ca_registers, check_window_bounds, entry, fused_mag_gos_dispatch,
-    gos_registers, launch, mag_cfar, mag_cfar_reference, takes_plain_path,
+    CaRegs, ca_like, ca_registers, call_entry, check_cuda_operands,
+    check_window_bounds, entry, fused_mag_gos_dispatch, gos_registers, launch,
+    mag_cfar, mag_cfar_reference, takes_plain_path,
 )
 
 FUSABLE_SIZES = (256, 512, 1024)
@@ -137,3 +143,49 @@ def fused_chain_gos_op(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
         return chain_gos(xp, rt, fft_cfg, cfar_cfg)
     return fused_mag_gos_dispatch(fft_op(xp, rt.log2_fft_size, fft_cfg), rt,
                                   cfar_cfg)
+
+
+def wire_ca_reference(words, rt: RuntimeConfig, fft_cfg: FftConfig,
+                      cfar_cfg: CfarConfig) -> torch.Tensor:
+    """The plain PyTorch version of ``wire_ca``: ``unpack_iq_pair``, then
+    ``chain_ca_reference``, then ``pack_cfar_words``."""
+    out = chain_ca_reference(unpack_iq_pair(words), rt, fft_cfg, cfar_cfg)
+    return pack_cfar_words(out.threshold, out.peaks, fft_cfg.log2_max)
+
+
+def wire_ca(words, rt: RuntimeConfig, fft_cfg: FftConfig,
+            cfar_cfg: CfarConfig) -> torch.Tensor:
+    """FFT + magnitude + CA-family CFAR at the full elaborated FFT size over
+    packed IQ beat words ``[..., N]`` (int32 view, or uint32), N =
+    ``fft_cfg.max_size`` in {256, 512, 1024}. Returns the packed CFAR words
+    as an int32 view."""
+    w = as_words(words)
+    n = w.shape[-1]
+    _check_fusable("wire_ca", n, fft_cfg)
+    check_window_bounds(cfar_cfg)
+    if takes_plain_path(w, "wire_ca"):
+        return wire_ca_reference(w, rt, fft_cfg, cfar_cfg)
+    check_cuda_operands(w, dtype=torch.int32)
+    out = torch.empty_like(w)
+    frames = w.numel() // n
+    if frames:
+        fn = entry("rsp_wire_ca", ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_float, CaRegs, pointers=2)
+        call_entry("wire_ca", w.device, fn,
+                   (w.data_ptr(), out.data_ptr(), frames),
+                   (_twiddles(n, w.device).data_ptr(), n.bit_length() - 1,
+                    fft_scale(n, fft_cfg), ca_registers(rt, cfar_cfg, n)))
+    return out
+
+
+def fused_wire_chain_op(words, rt: RuntimeConfig, fft_cfg: FftConfig,
+                        cfar_cfg: CfarConfig) -> torch.Tensor:
+    """The wire chain stage: the full-size FFT register runs ``wire_ca``; a
+    smaller runtime size unpacks, runs ``fft_op`` and ``mag_cfar``, and packs
+    with the elaborated bin width. A host ``if`` on the register."""
+    w = as_words(words)
+    if _full_size(rt, fft_cfg):
+        return wire_ca(w, rt, fft_cfg, cfar_cfg)
+    out = mag_cfar(fft_op(unpack_iq_pair(w), rt.log2_fft_size, fft_cfg), rt,
+                   cfar_cfg)
+    return pack_cfar_words(out.threshold, out.peaks, fft_cfg.log2_max)

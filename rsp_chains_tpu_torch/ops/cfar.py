@@ -68,12 +68,13 @@ def effective_algorithm(rt: RuntimeConfig, cfg: CfarConfig) -> int:
 def ca_window_sums(mag: torch.Tensor, lo: int, hi: int, guard: int,
                    log2w: int) -> tuple[torch.Tensor, torch.Tensor]:
     """lag(i) = sum mag[i-g-w .. i-g-1], lead(i) = sum mag[i+g+1 .. i+g+w],
-    with cells outside [lo, hi) counted as zero."""
+    with cells outside [lo, hi) counted as zero. In the dtype of ``mag``; an
+    int32 ``mag`` sums with int32 wraparound, as XLA's int32 does."""
     n = mag.shape[-1]
     w = 1 << log2w
     pad = guard + w + 1
     cell = torch.arange(n, device=mag.device)
-    row = F.pad(torch.where((cell >= lo) & (cell < hi), mag, 0.0), (pad, pad))
+    row = F.pad(torch.where((cell >= lo) & (cell < hi), mag, 0), (pad, pad))
     for k in range(log2w):
         s = 1 << k
         row = row + F.pad(row[..., :-s], (s, 0))

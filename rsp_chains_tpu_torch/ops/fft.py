@@ -42,6 +42,15 @@ def check_keep_msb(cfg: FftConfig) -> None:
             "not ported yet (ROADMAP queue 1 item 5)")
 
 
+def transform_size(log2_fft_size: Optional[int], cfg: FftConfig) -> int:
+    """The transform size the FFT-size register selects:
+    2^clip(log2_fft_size, min_log2_size, log2(max_size)), or max_size for a
+    static-size elaboration or no register."""
+    if not cfg.runtime_size or log2_fft_size is None:
+        return cfg.max_size
+    return 1 << min(max(int(log2_fft_size), cfg.min_log2_size), cfg.log2_max)
+
+
 @functools.lru_cache(maxsize=None)
 def _bitrev_idx(n: int) -> np.ndarray:
     bits = n.bit_length() - 1
@@ -61,9 +70,7 @@ def fft_op(x: CLike, log2_fft_size: Optional[int] = None,
         raise ValueError(f"frame length {xp.shape[-1]} != elaborated "
                          f"max_size {cfg.max_size}")
     check_keep_msb(cfg)
-    n = cfg.max_size
-    if cfg.runtime_size and log2_fft_size is not None:
-        n = 1 << min(max(int(log2_fft_size), cfg.min_log2_size), cfg.log2_max)
+    n = transform_size(log2_fft_size, cfg)
     xa = torch.complex(xp.re[..., :n].float(), xp.im[..., :n].float())
     if cfg.window is not None:
         xa = xa * torch.from_numpy(make_window(cfg.window, n)).to(xa.device)

@@ -1,7 +1,7 @@
 """The PyTorch port's main path, ``fft_mag_cfar_chain``, against the JAX
-package's, for CA elaborations and for the default ``ChainConfig()`` (GOSCA +
-CASH), plus the mirrored configs, the state conversion and the refusals of
-what is not ported yet.
+package's, for CA elaborations, for the default ``ChainConfig()`` (GOSCA +
+CASH) and for the fixed-point elaborations, plus the mirrored configs and the
+state conversion.
 
 The JAX side runs its XLA composition (``use_pallas=False``, one compile for
 the whole register sweep); the port runs its kernel route, which on CPU tensors
@@ -194,19 +194,51 @@ def test_default_chain_matches_jax_at_full_width(regs, raw):
     assert chain.stage_names == ("fft_mag_gos_cfar_fused",)
 
 
-@pytest.mark.parametrize("cfg, item", [
-    (T.ChainConfig(cfar=T.CfarConfig(variant=T.CfarVariant.CA,
+def _fixed_point_frames():
+    """Integer frames at a scale where the fixed-point grid bites (binPoint
+    0: the DIV_N spectrum of these frames is a few units)."""
+    rng = np.random.RandomState(11111)
+    x = (rng.randn(3, 1024) + 1j * rng.randn(3, 1024)) * 300
+    x += 20000 * np.exp(2j * np.pi * 0.13 * np.arange(1024))
+    return (np.round(x.real) + 1j * np.round(x.imag)).astype(np.complex64)
+
+
+@pytest.mark.parametrize("cfg_j, stages", [
+    (R.ChainConfig(cfar=R.CfarConfig(variant=R.CfarVariant.CA,
                                      include_cash=False),
-                   fixed_point=T.FixedPointConfig(enabled=True)), "item 5"),
-    (T.ChainConfig(cfar=T.CfarConfig(variant=T.CfarVariant.CA,
+                   fixed_point=R.FixedPointConfig(enabled=True)),
+     ("fft", "logmag", "cfar")),
+    (R.ChainConfig(cfar=R.CfarConfig(variant=R.CfarVariant.CA,
                                      include_cash=False),
-                   fixed_point=T.FixedPointConfig(enabled=True,
-                                                  bit_true=True)), "item 5"),
-    (T.ChainConfig(fixed_point=T.FixedPointConfig(enabled=True)), "item 5"),
+                   fixed_point=R.FixedPointConfig(enabled=True,
+                                                  bit_true=True)),
+     ("fft_mag_cfar_int_fused",)),
+    (R.ChainConfig(fixed_point=R.FixedPointConfig(enabled=True)),
+     ("fft", "logmag", "cfar")),
 ])
-def test_elaborations_not_ported_raise(cfg, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        T.fft_mag_cfar_chain(cfg)
+def test_fixed_point_elaborations_match_jax(cfg_j, stages):
+    """Float fidelity (boundary quantization after each non-terminal stage)
+    and the bit-true integer chain, each against the JAX chain of the same
+    elaboration: the bit-true one exactly, the float fidelity one at the
+    bench's bar."""
+    chain = T.fft_mag_cfar_chain(chain_config_from_reference(cfg_j))
+    assert chain.stage_names == stages
+    assert chain.stage_names == R.fft_mag_cfar_chain(cfg_j).stage_names
+    x = _fixed_point_frames()
+    rt_j = R.RuntimeConfig.make(fft_size=1024, ref_window_size=32,
+                                guard_window_size=4, cfar_algorithm=1,
+                                index_lagg=16, index_lead=16)
+    plain_j = dataclasses.replace(cfg_j, cfar=dataclasses.replace(
+        cfg_j.cfar, use_pallas=False))
+    want = _jax_chain(plain_j)(R.as_pair(x), rt_j)
+    got = chain(T.as_pair(x), runtime_from_reference(rt_j.peek()))
+    thr_w = np.asarray(want.threshold)
+    if cfg_j.fixed_point.bit_true:
+        np.testing.assert_array_equal(got.threshold.numpy(), thr_w)
+    else:
+        rel = np.abs(got.threshold.numpy() - thr_w).max() / np.abs(thr_w).max()
+        assert rel < REL, rel
+    np.testing.assert_array_equal(got.peaks.numpy(), np.asarray(want.peaks))
 
 
 def test_package_imports_no_jax():

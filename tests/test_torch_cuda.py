@@ -4,9 +4,11 @@ JAX; elsewhere every test skips. On the card:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py -q
 
-Bar: the bench's, max|dthr| / max|thr| < 1e-4 (the kernel's radix-2 fp32 FFT
-and direct window sums round differently from torch.fft and the dyadic box
-sums) and peak flips <= 1e-5 of the cells."""
+Bars: for the float kernels the bench's, max|dthr| / max|thr| < 1e-4 (the
+kernel's radix-2 fp32 FFT and direct window sums round differently from
+torch.fft and the dyadic box sums) and peak flips <= 1e-5 of the cells; for
+the wire kernel the bench's wire bar on the decoded fields; for the integer
+kernels equality."""
 
 import dataclasses
 
@@ -18,6 +20,7 @@ import rsp_chains_tpu_torch as rsp
 from rsp_chains_tpu_torch.kernels import _build
 from rsp_chains_tpu_torch.kernels import cfar as kcfar
 from rsp_chains_tpu_torch.kernels import chain as kchain
+from rsp_chains_tpu_torch.kernels import int_chain as kint
 from rsp_chains_tpu_torch.ops.fft import fft_op
 
 pytestmark = pytest.mark.cuda
@@ -272,3 +275,226 @@ def test_gos_wrappers_refuse_bad_operands(dev):
     with pytest.raises(ValueError):
         kcfar.mag_gos_cfar(rsp.C(x.re[:, :640].contiguous(),
                                  x.im[:, :640].contiguous()), rt, cfg.cfar)
+
+
+# ---- Kernel E (wire_ca): packed words in and out ----
+
+def _words(shape, dev, seed=0, scale=250.0):
+    """Beat words of IQ quantized as the JAX bench quantizes its frames
+    (bench.py:651-653): x * 250, rounded, clipped to +-32767."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(*shape) + 1j * rng.randn(*shape)
+    x[..., 40] += 60.0
+    q = (np.clip(np.round(x.real * scale), -32767, 32767)
+         + 1j * np.clip(np.round(x.imag * scale), -32767, 32767))
+    return rsp.packing.pack_iq(q.astype(np.complex64)).to(dev)
+
+
+def _assert_wire_bar(got, want, bw):
+    """The JAX bench's wire bar (bench.py:655-679): bins equal, threshold
+    field within 2 LSB and 0.05 LSB on average, peak flips <= 1e-5."""
+    torch.cuda.synchronize()
+    tg, bg, pg = rsp.packing.unpack_cfar_words(got, bw)
+    tw, bwant, pw = rsp.packing.unpack_cfar_words(want, bw)
+    assert torch.equal(bg, bwant)
+    err = (tg - tw).abs().double()
+    assert err.max().item() <= 2 and err.mean().item() <= 0.05
+    assert int((pg != pw).sum().item()) <= 1e-5 * pg.numel() + 0.5
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024])
+@pytest.mark.parametrize("regs", REGS)
+def test_wire_ca_matches_reference(dev, n, regs):
+    cfg = _cfg(n)
+    w = _words((37, n), dev)
+    rt = rsp.RuntimeConfig.make(**{"fft_size": n, **regs})
+    before = _build.LAUNCHES["wire_ca"]
+    got = kchain.wire_ca(w, rt, cfg.fft, cfg.cfar)
+    assert _build.LAUNCHES["wire_ca"] == before + 1
+    assert got.dtype == torch.int32 and got.shape == w.shape
+    _assert_wire_bar(got, kchain.wire_ca_reference(w, rt, cfg.fft, cfg.cfar),
+                     n.bit_length() - 1)
+
+
+@pytest.mark.parametrize("regs, kernel", [
+    (dict(), "wire_ca"), (dict(fft_size=256), "mag_cfar")])
+def test_wire_chain_launches_the_kernel_its_registers_select(dev, regs,
+                                                             kernel):
+    cfg = _cfg(1024)
+    chain = rsp.rx_fft_mag_cfar_tx_chain(cfg)
+    assert chain.stage_names == ("rx_fft_mag_cfar_tx_fused",)
+    w = _words((4, 1024), dev, seed=6)
+    rt = rsp.RuntimeConfig.make(**{"fft_size": 1024, **regs})
+    before = dict(_build.LAUNCHES)
+    got = chain(w, rt)
+    after = dict(_build.LAUNCHES)
+    assert {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)} == {kernel: 1}
+    plain = dataclasses.replace(cfg, cfar=dataclasses.replace(
+        cfg.cfar, use_pallas=False))
+    _assert_wire_bar(got, rsp.rx_fft_mag_cfar_tx_chain(plain)(w, rt), 10)
+
+
+# ---- Kernels F (chain_int) and G (chain_int_gos): exact ----
+
+def _int_iq(shape, dev, seed=0, amp=32767):
+    rng = np.random.RandomState(seed)
+    re = rng.randint(-amp, amp + 1, shape)
+    im = rng.randint(-amp, amp + 1, shape)
+    return rsp.C(torch.tensor(re, dtype=torch.int32, device=dev),
+                 torch.tensor(im, dtype=torch.int32, device=dev))
+
+
+def _assert_exact(got, want):
+    torch.cuda.synchronize()
+    assert got.threshold.dtype == torch.int32 and got.peaks.dtype == torch.bool
+    assert torch.equal(got.threshold, want.threshold)
+    assert torch.equal(got.peaks, want.peaks)
+
+
+def _fft(n, expand=None, lsb=None):
+    p = n.bit_length() - 1
+    return rsp.FftConfig(
+        max_size=n,
+        expand_logic=None if expand is None else tuple(
+            int(s in expand) for s in range(p)),
+        keep_msb_or_lsb=None if lsb is None else tuple(
+            int(s not in lsb) for s in range(p)))
+
+
+INT_REGS = [
+    dict(),
+    dict(mag_mode=0, cfar_mode=1, peak_grouping=1),
+    dict(mag_mode=1, cfar_mode=2, threshold_scaler=2.5),
+    dict(mag_mode=1, div_sum=0, threshold_scaler=64.0),   # wraps in int32
+    dict(log_or_linear=0, threshold_scaler=3.5, cfar_fft_size=200),
+    dict(ref_window_size=64, guard_window_size=8, div_sum=6),
+    dict(ref_window_size=2, guard_window_size=1, div_sum=40),
+]
+INT_FFTS = [dict(), dict(expand=(0, 2, 3, 5, 6, 7, 8)), dict(lsb=(1, 4)),
+            dict(expand=(1,), lsb=(0, 2))]
+
+
+@pytest.mark.parametrize("n", [256, 1024, 4096, 16384])
+@pytest.mark.parametrize("regs", INT_REGS)
+@pytest.mark.parametrize("fft", INT_FFTS)
+def test_chain_int_matches_reference(dev, n, regs, fft):
+    cfg = _cfg(n)
+    fft_cfg = _fft(n, **fft)
+    x = _int_iq((9, n), dev, seed=n)
+    rt = rsp.RuntimeConfig.make(**{"fft_size": n, **regs})
+    before = _build.LAUNCHES["chain_int"]
+    got = kint.chain_int(x, rt, fft_cfg, cfg.cfar)
+    assert _build.LAUNCHES["chain_int"] == before + 1
+    _assert_exact(got, kint.chain_int_reference(x, rt, fft_cfg, cfg.cfar))
+
+
+INT_GOS_REGS = [
+    dict(),
+    dict(cfar_mode=1, index_lagg=8, index_lead=24, peak_grouping=1),
+    dict(cfar_mode=2, index_lagg=0, index_lead=0, mag_mode=0),
+    dict(index_lagg=31, index_lead=31, mag_mode=1, threshold_scaler=2.5),
+    dict(ref_window_size=64, guard_window_size=8, div_sum=6, index_lagg=63,
+         index_lead=5, cfar_fft_size=300),
+    dict(ref_window_size=2, guard_window_size=1, index_lagg=1, index_lead=0),
+    dict(cfar_algorithm=0, cfar_mode=1, mag_mode=1, div_sum=0),
+]
+
+
+@pytest.mark.parametrize("n", [256, 1024, 4096, 16384])
+@pytest.mark.parametrize("regs", INT_GOS_REGS)
+@pytest.mark.parametrize("fft", INT_FFTS[:2])
+def test_chain_int_gos_matches_reference(dev, n, regs, fft):
+    cfg = _gos_cfg(n)
+    fft_cfg = _fft(n, **fft)
+    x = _int_iq((5, n), dev, seed=n + 1)
+    rt = rsp.RuntimeConfig.make(**{"fft_size": n, **GOS, **regs})
+    before = _build.LAUNCHES["chain_int_gos"]
+    got = kint.chain_int_gos(x, rt, fft_cfg, cfg.cfar)
+    assert _build.LAUNCHES["chain_int_gos"] == before + 1
+    _assert_exact(got, kint.chain_int_gos_reference(x, rt, fft_cfg, cfg.cfar))
+
+
+def _bit_true(cfar):
+    return rsp.ChainConfig(cfar=cfar, fixed_point=rsp.FixedPointConfig(
+        enabled=True, width=16, bin_point=0, bit_true=True))
+
+
+@pytest.mark.parametrize("cfar, regs, kernel", [
+    (rsp.CfarConfig(variant=rsp.CfarVariant.CA, include_cash=False), {},
+     "chain_int"),
+    (rsp.CfarConfig(variant=rsp.CfarVariant.CA, include_cash=False),
+     dict(mag_mode=3, log_or_linear=0), None),
+    (rsp.CfarConfig(), GOS, "chain_int_gos"),
+    (rsp.CfarConfig(), dict(cfar_algorithm=0), "chain_int"),
+    (rsp.CfarConfig(), dict(cfar_mode=3, sub_window_size=8), None),
+    (rsp.CfarConfig(), dict(GOS, fft_size=512), None),
+])
+def test_bit_true_chain_launches_the_kernel_its_registers_select(
+        dev, cfar, regs, kernel):
+    cfg = _bit_true(cfar)
+    chain = rsp.fft_mag_cfar_chain(cfg)
+    assert chain.stage_names == ("fft_mag_cfar_int_fused",)
+    x = _int_iq((4, 1024), dev, seed=7, amp=8000)
+    rt = rsp.RuntimeConfig.make(**{"fft_size": 1024, **regs})
+    before = dict(_build.LAUNCHES)
+    got = chain(x, rt)
+    after = dict(_build.LAUNCHES)
+    assert {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)} == ({kernel: 1} if kernel else {})
+    _assert_exact(got, kint.int_ops_chain(x, rt, cfg))
+
+
+def test_bit_true_wire_chain_launches_chain_int(dev):
+    cfg = _bit_true(rsp.CfarConfig(variant=rsp.CfarVariant.CA,
+                                   include_cash=False))
+    chain = rsp.rx_fft_mag_cfar_tx_chain(cfg)
+    w = _words((4, 1024), dev, seed=8)
+    rt = rsp.RuntimeConfig.make(fft_size=1024)
+    before = _build.LAUNCHES["chain_int"]
+    got = chain(w, rt)
+    assert _build.LAUNCHES["chain_int"] == before + 1
+    torch.cuda.synchronize()
+    plain = dataclasses.replace(cfg, cfar=dataclasses.replace(
+        cfg.cfar, use_pallas=False))
+    assert torch.equal(got, rsp.rx_fft_mag_cfar_tx_chain(plain)(w, rt))
+
+
+def test_integer_register_writes_build_once(dev):
+    chain = rsp.fft_mag_cfar_chain(_bit_true(rsp.CfarConfig()))
+    x = _int_iq((4, 1024), dev)
+    for regs in INT_GOS_REGS + [dict(cfar_algorithm=0), dict(fft_size=256)]:
+        chain(x, rsp.RuntimeConfig.make(**{"fft_size": 1024, **GOS, **regs}))
+    wire = rsp.rx_fft_mag_cfar_tx_chain(_cfg(1024))
+    for regs in REGS:
+        wire(_words((4, 1024), dev), rsp.RuntimeConfig.make(**regs))
+    torch.cuda.synchronize()
+    assert _build.BUILDS == 1
+
+
+def test_new_wrappers_refuse_bad_operands(dev):
+    cfg = _cfg(1024)
+    gcfg = _gos_cfg(1024)
+    rt = rsp.RuntimeConfig.make(**GOS)
+    w = _words((4, 1024), dev)
+    with pytest.raises(ValueError):
+        kchain.wire_ca(w[:, :512].contiguous(), rt, cfg.fft, cfg.cfar)
+    with pytest.raises(ValueError):
+        kchain.wire_ca(torch.zeros(4, 2048, dtype=torch.int32,
+                                   device=dev)[:, ::2], rt, cfg.fft, cfg.cfar)
+    x = _int_iq((4, 1024), dev)
+    with pytest.raises(ValueError):
+        kint.chain_int(rsp.C(x.re, x.im.cpu()), rt, cfg.fft, cfg.cfar)
+    with pytest.raises(ValueError):
+        kint.chain_int(rsp.C(x.re[:, :640].contiguous(),
+                             x.im[:, :640].contiguous()), rt, cfg.fft,
+                       cfg.cfar)
+    with pytest.raises(ValueError, match="magnitude modes 0-2"):
+        kint.chain_int(x, rt.merge_regs(mag_mode=3), cfg.fft, cfg.cfar)
+    with pytest.raises(ValueError, match="no CASH"):
+        kint.chain_int_gos(x, rt.merge_regs(cfar_mode=3), gcfg.fft, gcfg.cfar)
+    with pytest.raises(ValueError, match="at most 7 expanding"):
+        kint.chain_int(x, rt, rsp.FftConfig(expand_logic=(1,) * 10), cfg.cfar)
+    big = _int_iq((1, 32768), dev)
+    with pytest.raises(ValueError, match="power of two in"):
+        kint.chain_int_gos(big, rt, rsp.FftConfig(max_size=32768), gcfg.cfar)
