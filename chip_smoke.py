@@ -7,15 +7,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    available (there is no CPU fallback);
 2. builds the CUDA kernels from ``rsp_chains_tpu_torch/csrc``, one ``nvcc`` a
    source, all in parallel;
-3. holds each of the seven kernels against its plain PyTorch version at the
+3. holds each of the eleven kernels against its plain PyTorch version at the
    headline shape, one CPI batch of 64 channels x 256 pulses x 1024 samples:
    Kernels A and B under a CA elaboration, Kernels C and D under the default
    ``ChainConfig()`` (GOSCA + CASH) with GOS registers, Kernel E on the beat
    words of the frames quantized as the JAX bench quantizes them (x 250,
    rounded, clipped to +-32767), Kernels F and G on the same integers under
-   the bit-true CA and GOSCA + CASH elaborations. The plain GOS versions
-   gather every cell's window (4.3 GB a side at this shape), so they run, and
-   are compared and timed, over 8-channel chunks;
+   the bit-true CA and GOSCA + CASH elaborations; and at the JAX bench's
+   shapes of the 2-D family: Kernel H (``rd_ca``, and ``rd_map`` for
+   ``emit='map'``) and Kernel J (``rd_2d``) on the same CPIs with the bench's
+   128-tap chirp, Hann Doppler window, fftshift and DIV_N
+   (``bench.py:541-563``, ``:760-790``), Kernel I (``pc_ca``) on 16 x 256
+   frames of 4096 (``bench.py:565-591``). The plain GOS versions gather every
+   cell's window (4.3 GB a side at this shape), so they run, and are compared
+   and timed, over 8-channel chunks;
 4. drives the public entry points over register sweeps, each path with the
    launch counters set to 0 just before it and read just after, each point
    asserting the kernel (or the integer ops) it took: ``fft_mag_cfar_chain``
@@ -24,25 +29,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    at the integer kernels' frame bound, N = 16384, and
    ``rx_fft_mag_cfar_tx_chain`` for the float CA and the bit-true
    elaborations; it checks the three-tone detections of the float and
-   bit-true chains;
+   bit-true chains; then ``range_doppler_chain`` (CA at the full batch, GOSCA
+   on an 8-channel slice), ``pulse_compression_chain``, ``rx_rd_tx_chain``
+   and ``rd_2d_cfar_chain`` over their register sweeps, and the detection of
+   a ``chirp_with_targets`` CPI at its (Doppler, range) cell;
 5. times each kernel and its plain version, and the chains, with CUDA events;
 6. profiles the full-size kernel path, the plain path, the shrunken-size
-   kernel path, the default chain's GOS path and the bit-true GOSCA chain's
-   GOS path: device time per call of each stage and of the busiest device
-   kernels, and the device memory a call allocates beyond its inputs.
+   kernel path, the default chain's GOS path, the bit-true GOSCA chain's
+   GOS path and the range-Doppler kernel and plain paths: device time per
+   call of each stage and of the busiest device kernels, and the device
+   memory a call allocates beyond its inputs.
 
 Bars: for the float kernels the bench's (``bench.py:404``), max|dthr| /
 max|thr| < 1e-4 and peak flips <= 1e-5 of the cells; for the wire kernel the
 bench's wire bar (``bench.py:655-679``), bins equal, the threshold field
 within 2 LSB and 0.05 LSB on average, peak flips <= 1e-5; for the integer
-kernels and chains equality. Any failed check raises. The last line is the
+kernels and chains equality; for the complex range-Doppler map
+max|dmap| / max|map| < 1e-4. Any failed check raises. The last line is the
 JSON device record; the line before it lists the kernels, each with its
 launches on the main paths, its error, its time, its plain version's, and its
 bound: the larger of its bytes over 3.35 TB/s and the least operations the
 function needs over the H100's rate for their type (the FFT's 5 N log2 N a
-frame; for the rank selections, a sorted window that slides by one cell, two
-binary searches a window start). The compares of the kernels' own counting
-selection are printed beside it, not used in the bound.
+frame, two along range and one along the pulses of each range column for the
+range-Doppler kernels; for the rank selections, a sorted window that slides
+by one cell, two binary searches a window start). The compares of the
+kernels' own counting selection are printed beside it, not used in the bound.
 """
 
 from __future__ import annotations
@@ -155,6 +166,48 @@ WIRE_SWEEP = [
     ("wire GO grouping", dict(cfar_mode=1, peak_grouping=1), "wire_ca"),
     ("wire fft_size 512", dict(fft_size=512), "mag_cfar"),
 ]
+# the 2-D family at the JAX bench's shapes: the range-Doppler CPIs are SHAPE;
+# pulse compression takes 16 x 256 frames of 4096 (bench.py:565-591) under
+# its registers; the 2-D detector's elaboration and registers are the bench's
+# (bench.py:771-775)
+PC_SHAPE = (16, 256, 4096)
+PC_REGS = dict(fft_size=4096, ref_window_size=32, guard_window_size=4,
+               threshold_scaler=8.0)
+RD2_CFG = dict(max_ref_range=16, max_guard_range=4, max_ref_doppler=8,
+               max_guard_doppler=2)
+RD2_REGS = dict(ref_range=8, guard_range=2, ref_doppler=4, guard_doppler=1,
+                threshold_scaler=6.0, active_range=1024)
+# range_doppler_chain's sweep over HEADLINE: SWEEP without the FFT-size
+# register, which the range-Doppler chain does not read
+RD_SWEEP = [(name, kw) for name, kw in SWEEP if "fft_size" not in kw]
+# rd_2d_cfar_chain's sweep: (name, registers over HEADLINE, 2-D registers
+# over RD2_REGS); the bench's scaler finds no cell of the noise CPIs, so the
+# other points take 2.5, where some cells pass
+RD2_SWEEP = [
+    ("2-D bench", {}, {}),
+    ("2-D grouping", {}, dict(peak_grouping=1, threshold_scaler=2.5)),
+    ("2-D log domain", dict(mag_mode=3), dict(log_or_linear=0,
+                                              threshold_scaler=2.0)),
+    ("2-D active_range 768", {}, dict(active_range=768,
+                                      threshold_scaler=2.5)),
+    ("2-D extents at maxima", {}, dict(ref_range=16, guard_range=4,
+                                       ref_doppler=8, guard_doppler=2,
+                                       threshold_scaler=2.5)),
+    ("2-D extents 1/0/1/0", {}, dict(ref_range=1, guard_range=0,
+                                     ref_doppler=1, guard_doppler=0,
+                                     threshold_scaler=2.5)),
+]
+# a second 2-D elaboration whose Doppler reach (80 rows each side) spans most
+# of the CPI's 256 pulses: (name, registers over HEADLINE, 2-D registers)
+RD2_FAR_CFG = dict(RD2_CFG, max_ref_doppler=64, max_guard_doppler=16)
+RD2_FAR_SWEEP = [
+    ("2-D Doppler reach 80", {}, dict(ref_doppler=64, guard_doppler=16,
+                                      threshold_scaler=2.5)),
+    ("2-D Doppler reach 80 grouping", {}, dict(ref_doppler=64,
+                                               guard_doppler=16,
+                                               peak_grouping=1,
+                                               threshold_scaler=2.5)),
+]
 
 
 def compare(got, want, what: str) -> float:
@@ -177,6 +230,25 @@ def compare(got, want, what: str) -> float:
     if not (rel < REL_BAR and flips <= FLIP_BAR * cells):
         raise AssertionError(f"{what}: outside the bar")
     return dthr
+
+
+def compare_map(got, want, what: str) -> float:
+    """Check a complex map against the plain ``want`` at the bar; return
+    max|dmap|."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.re.shape != want.re.shape or not bool(
+            torch.isfinite(got.re).all() & torch.isfinite(got.im).all()):
+        raise AssertionError(f"{what}: shape {tuple(got.re.shape)} or "
+                             "non-finite values")
+    err = max((got.re - want.re).abs().max().item(),
+              (got.im - want.im).abs().max().item())
+    scale = max(want.re.abs().max().item(), want.im.abs().max().item())
+    print(f"{what}: rel dmap {err / scale:.3e} (max|dmap| {err:.3e})")
+    if not err / scale < REL_BAR:
+        raise AssertionError(f"{what}: outside the bar")
+    return err
 
 
 def compare_exact(got, want, what: str) -> float:
@@ -308,8 +380,10 @@ def main() -> int:
     from rsp_chains_tpu_torch.kernels import cfar as kcfar
     from rsp_chains_tpu_torch.kernels import chain as kchain
     from rsp_chains_tpu_torch.kernels import int_chain as kint
+    from rsp_chains_tpu_torch.kernels import rd as krd
     from rsp_chains_tpu_torch.ops.cfar import window_registers
     from rsp_chains_tpu_torch.ops.fft import fft_op
+    from rsp_chains_tpu_torch.ops.matched_filter import h_planes
 
     launched = _build.LAUNCHES
     dev = torch.device("cuda", 0)
@@ -386,6 +460,45 @@ def main() -> int:
                           chunked(lambda c: kint.chain_int_gos_reference(
                               c, grt, igcfg.fft, igcfg.cfar), xi16),
                           "chain_int_gos vs chain_int_gos_reference")
+
+    # the 2-D family at the JAX bench's shapes
+    taps = rsp.golden.lfm_chirp(128, 0.0, 0.25)
+    rd_cfg = rsp.ChainConfig(
+        fft=rsp.FftConfig(max_size=SHAPE[-1]),
+        matched_filter=rsp.MatchedFilterConfig(num_taps=128,
+                                               fft_size=SHAPE[-1]),
+        doppler=rsp.DopplerConfig(num_pulses=SHAPE[1]), cfar=cfg.cfar)
+    rd_plain_cfg = dataclasses.replace(rd_cfg, cfar=plain_cfg.cfar)
+    err_h = compare(krd.fused_rd_chain(x, rt, taps, rd_cfg),
+                    krd.fused_rd_chain_reference(x, rt, taps, rd_cfg),
+                    "rd_ca vs fused_rd_chain_reference")
+    err_hm = compare_map(
+        krd.fused_rd_chain(x, rt, taps, rd_cfg, emit="map"),
+        krd.fused_rd_chain_reference(x, rt, taps, rd_cfg, emit="map"),
+        "rd_map vs fused_rd_chain_reference(emit='map')")
+    cfg2d = rsp.Cfar2dConfig(**RD2_CFG)
+    rt2d = rsp.Cfar2dRuntime.make(**RD2_REGS)
+    err_j = compare(krd.fused_rd_2d_chain(x, rt, rt2d, taps, rd_cfg, cfg2d),
+                    krd.fused_rd_2d_chain_reference(x, rt, rt2d, taps, rd_cfg,
+                                                    cfg2d),
+                    "rd_2d vs fused_rd_2d_chain_reference")
+    pc_cfg = rsp.ChainConfig(
+        fft=rsp.FftConfig(max_size=PC_SHAPE[-1]),
+        matched_filter=rsp.MatchedFilterConfig(num_taps=128,
+                                               fft_size=PC_SHAPE[-1]),
+        cfar=rsp.CfarConfig(max_ref_window=64, max_fft_size=PC_SHAPE[-1],
+                            variant=rsp.CfarVariant.CA, include_cash=False))
+    pc_plain_cfg = dataclasses.replace(pc_cfg, cfar=dataclasses.replace(
+        pc_cfg.cfar, use_pallas=False))
+    pgen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x2 = rsp.C(*(torch.randn(PC_SHAPE, device=dev, generator=pgen) * 100
+                 for _ in range(2)))
+    rt_pc = rsp.RuntimeConfig.make(**PC_REGS)
+    h_pc = h_planes(taps, PC_SHAPE[-1], True, dev)
+    err_i = compare(kchain.pc_ca(x2, rt_pc, pc_cfg.fft, pc_cfg.cfar, h_pc),
+                    kchain.pc_ca_reference(x2, rt_pc, pc_cfg.fft, pc_cfg.cfar,
+                                           h_pc),
+                    "pc_ca vs pc_ca_reference")
 
     # ---- the main path through the public entry point ----
     chain = rsp.fft_mag_cfar_chain(cfg)
@@ -468,14 +581,17 @@ def main() -> int:
     def sweep(path, points, run, check):
         """Drive one path over its register points with the counters set to
         0 just before and read just after; each point must launch its kernel
-        once, or no kernel where it names the integer ops."""
+        once (each of its kernels, where it names a dict of launches), or no
+        kernel where it names the integer ops."""
         launched.clear()
         for name, rt_s, kernel, *args in points:
             before = dict(launched)
             check(run(rt_s, *args), name, rt_s, *args)
             took = {k: v - before.get(k, 0) for k, v in launched.items()
                     if v != before.get(k, 0)}
-            if took != ({kernel: 1} if kernel else {}):
+            want = kernel if isinstance(kernel, dict) else (
+                {kernel: 1} if kernel else {})
+            if took != want:
                 raise AssertionError(f"{path} [{name}] took {took}, not "
                                      f"{kernel or 'the integer ops'}")
         got = dict(launched)
@@ -570,13 +686,121 @@ def main() -> int:
     wire_launches = sweep("wire path", wire_points,
                           lambda rt_s, top, plain_top: top(ws, rt_s),
                           wire_check)
+
+    # ---- the range-Doppler family through its public entry points ----
+    def hl(**kw):
+        return rsp.RuntimeConfig.make(**{**HEADLINE, **kw})
+
+    rd_chain = rsp.range_doppler_chain(rd_cfg, taps=taps)
+    rd_plain = rsp.range_doppler_chain(rd_plain_cfg, taps=taps)
+    assert rd_chain.stage_names == ("rd_fused",), rd_chain.stage_names
+    assert rd_plain.stage_names == ("matched_filter", "doppler_fft", "logmag",
+                                    "cfar"), rd_plain.stage_names
+    rd_launches = sweep(
+        "range-Doppler path",
+        [(name, hl(**kw), "rd_ca") for name, kw in RD_SWEEP],
+        lambda rt_s: rd_chain(x, rt_s),
+        lambda out, name, rt_s: compare(out, rd_plain(x, rt_s),
+                                        f"range_doppler_chain [{name}]"))
+    rd_gchain = rsp.range_doppler_chain(
+        dataclasses.replace(rd_cfg, cfar=gcfg.cfar), taps=taps)
+    rd_gplain = rsp.range_doppler_chain(
+        dataclasses.replace(rd_cfg, cfar=gplain_cfg.cfar), taps=taps)
+    assert rd_gchain.stage_names == ("rd_map_fused", "mag_gos_cfar_fused"), \
+        rd_gchain.stage_names
+    rd_gos_launches = sweep(
+        "range-Doppler GOSCA path",
+        [("RD GOS registers", grt, {"rd_map": 1, "mag_gos_cfar": 1}),
+         ("RD GOS CASH", grt.merge_regs(cfar_mode=3, sub_window_size=8),
+          {"rd_map": 1, "mag_gos_cfar": 1}),
+         ("RD GOSCA, CA registers", rt, {"rd_map": 1, "mag_cfar": 1})],
+        lambda rt_s: rd_gchain(xs, rt_s),
+        lambda out, name, rt_s: compare(out, rd_gplain(xs, rt_s),
+                                        f"range_doppler_chain GOSCA [{name}]"))
+
+    # the detection of a chirp target at its (Doppler, range) cell
+    delay, fd = 300, 0.125
+    cpi = rsp.golden.chirp_with_targets(SHAPE[1], SHAPE[2], taps,
+                                        [(delay, 1.0, fd)]).astype(np.complex64)
+    cell = (SHAPE[1] // 2 + int(fd * SHAPE[1]), delay)
+    launched.clear()
+    rt_det = hl(peak_grouping=1)
+    det_out = rd_chain(cpi, rt_det)            # numpy in: to the card
+    det_map = krd.fused_rd_chain(rsp.as_pair(cpi, device=dev), rt_det, taps,
+                                 rd_cfg, emit="map")
+    det_mag = (det_map.re ** 2 + det_map.im ** 2).cpu().numpy()
+    det_launches = dict(launched)
+    argmax = tuple(int(i) for i in np.unravel_index(det_mag.argmax(),
+                                                    det_mag.shape))
+    det_cells = np.argwhere(det_out.peaks.cpu().numpy()).tolist()
+    print(f"range-Doppler detection: map maximum at {argmax}, target cell "
+          f"{cell}, detected cells {det_cells[:8]} ({len(det_cells)} in all)")
+    if argmax != cell or list(cell) not in det_cells:
+        raise AssertionError("the chirp target is not detected at its cell")
+
+    pc_chain = rsp.pulse_compression_chain(pc_cfg, taps=taps)
+    pc_plain = rsp.pulse_compression_chain(pc_plain_cfg, taps=taps)
+    assert pc_chain.stage_names == ("pc_fused",), pc_chain.stage_names
+    assert pc_plain.stage_names == ("spectral_mf", "logmag", "cfar"), \
+        pc_plain.stage_names
+    pc_launches = sweep(
+        "pulse-compression path",
+        [("PC full size", rt_pc, "pc_ca"),
+         ("PC GO grouping", rt_pc.merge_regs(cfar_mode=1, peak_grouping=1),
+          "pc_ca"),
+         ("PC SO scaler 3", rt_pc.merge_regs(cfar_mode=2,
+                                             threshold_scaler=3.0), "pc_ca"),
+         ("PC fft_size 2048", rt_pc.merge_regs(fft_size=2048), "mag_cfar")],
+        lambda rt_s: pc_chain(x2, rt_s),
+        lambda out, name, rt_s: compare(out, pc_plain(x2, rt_s),
+                                        f"pulse_compression_chain [{name}]"))
+
+    rd_wchain = rsp.rx_rd_tx_chain(rd_cfg, taps=taps)
+    rd_wplain = rsp.rx_rd_tx_chain(rd_plain_cfg, taps=taps)
+    assert rd_wchain.stage_names == ("rx_unpack", "rd_fused", "tx_pack"), \
+        rd_wchain.stage_names
+    rd_wire_launches = sweep(
+        "range-Doppler wire path",
+        [("RD wire CA", rt, "rd_ca"),
+         ("RD wire GO grouping", hl(cfar_mode=1, peak_grouping=1), "rd_ca")],
+        lambda rt_s: rd_wchain(ws, rt_s),
+        lambda out, name, rt_s: compare_words(out, rd_wplain(ws, rt_s), bw,
+                                              f"rx_rd_tx_chain [{name}]"))
+
+    run2d = rsp.rd_2d_cfar_chain(rd_cfg, taps=taps, cfg2d=cfg2d)
+    plain2d = rsp.rd_2d_cfar_chain(rd_plain_cfg, taps=taps, cfg2d=cfg2d)
+    assert run2d.fully_fusable and not plain2d.fusable
+    rd2_launches = sweep(
+        "2-D detector path",
+        [(name, hl(**kw), "rd_2d",
+          rsp.Cfar2dRuntime.make(**{**RD2_REGS, **kw2}))
+         for name, kw, kw2 in RD2_SWEEP],
+        lambda rt_s, rt2_s: run2d(x, rt_s, rt2_s),
+        lambda out, name, rt_s, rt2_s: compare(
+            out, plain2d(x, rt_s, rt2_s), f"rd_2d_cfar_chain [{name}]"))
+    far2d = rsp.Cfar2dConfig(**RD2_FAR_CFG)
+    run2d_far = rsp.rd_2d_cfar_chain(rd_cfg, taps=taps, cfg2d=far2d)
+    plain2d_far = rsp.rd_2d_cfar_chain(rd_plain_cfg, taps=taps, cfg2d=far2d)
+    assert run2d_far.fully_fusable and not plain2d_far.fusable
+    rd2_far_launches = sweep(
+        "2-D detector path, long Doppler reach",
+        [(name, hl(**kw), "rd_2d",
+          rsp.Cfar2dRuntime.make(**{**RD2_REGS, **kw2}))
+         for name, kw, kw2 in RD2_FAR_SWEEP],
+        lambda rt_s, rt2_s: run2d_far(x, rt_s, rt2_s),
+        lambda out, name, rt_s, rt2_s: compare(
+            out, plain2d_far(x, rt_s, rt2_s), f"rd_2d_cfar_chain [{name}]"))
+
     if _build.BUILDS != 1:
         raise AssertionError(f"library built {_build.BUILDS} times, not once")
     paths = (ca_launches, gos_launches, int_launches, int_gos_launches,
-             int_bound_launches, wire_launches)
+             int_bound_launches, wire_launches, rd_launches, rd_gos_launches,
+             det_launches, pc_launches, rd_wire_launches, rd2_launches,
+             rd2_far_launches)
     launches = {k: sum(p.get(k, 0) for p in paths)
                 for k in ("chain_ca", "mag_cfar", "mag_gos_cfar", "chain_gos",
-                          "wire_ca", "chain_int", "chain_int_gos")}
+                          "wire_ca", "chain_int", "chain_int_gos", "rd_ca",
+                          "rd_map", "pc_ca", "rd_2d")}
     print(f"main-path launches, all paths: {launches}; library builds: "
           f"{_build.BUILDS}")
     if min(launches.values()) < 1:
@@ -626,11 +850,35 @@ def main() -> int:
         "bit-true GOSCA fft_mag_cfar_chain, GOS registers": (
             time_ms(lambda: igchain(xi16, grt)),
             chunk_ms(lambda c: igplain(c, grt), xi16), 13),
+        "rd_ca": (time_ms(lambda: krd.fused_rd_chain(x, rt, taps, rd_cfg)),
+                  time_ms(lambda: krd.fused_rd_chain_reference(
+                      x, rt, taps, rd_cfg)), 13),
+        "rd_map": (time_ms(lambda: krd.fused_rd_chain(x, rt, taps, rd_cfg,
+                                                      emit="map")),
+                   time_ms(lambda: krd.fused_rd_chain_reference(
+                       x, rt, taps, rd_cfg, emit="map")), 16),
+        "range_doppler_chain": (time_ms(lambda: rd_chain(x, rt)),
+                                time_ms(lambda: rd_plain(x, rt)), 13),
+        "rd_2d": (time_ms(lambda: krd.fused_rd_2d_chain(x, rt, rt2d, taps,
+                                                        rd_cfg, cfg2d)),
+                  time_ms(lambda: krd.fused_rd_2d_chain_reference(
+                      x, rt, rt2d, taps, rd_cfg, cfg2d)), 13),
+        "rd_2d_cfar_chain": (time_ms(lambda: run2d(x, rt, rt2d)),
+                             time_ms(lambda: plain2d(x, rt, rt2d)), 13),
+        "pc_ca": (time_ms(lambda: kchain.pc_ca(x2, rt_pc, pc_cfg.fft,
+                                               pc_cfg.cfar, h_pc)),
+                  time_ms(lambda: kchain.pc_ca_reference(
+                      x2, rt_pc, pc_cfg.fft, pc_cfg.cfar, h_pc)), 13),
+        "pulse_compression_chain": (time_ms(lambda: pc_chain(x2, rt_pc)),
+                                    time_ms(lambda: pc_plain(x2, rt_pc)), 13),
     }
+    assert x2.re.numel() == samples
     print(f"plain GOS times are of the {SHAPE[0]} channels in "
           f"{GOS_CHUNK}-channel chunks")
     for name, (ms, plain_ms, per) in times.items():
-        print(f"{name} at {'x'.join(map(str, SHAPE))}: kernel path {ms:.4f} ms "
+        shape = PC_SHAPE if name in ("pc_ca", "pulse_compression_chain") \
+            else SHAPE
+        print(f"{name} at {'x'.join(map(str, shape))}: kernel path {ms:.4f} ms "
               f"= {samples / ms / 1e3:.1f} Msamples/s "
               f"({per * samples / ms / 1e6:.1f} GB/s of {per} B/sample); "
               f"plain path {plain_ms:.4f} ms = "
@@ -660,6 +908,15 @@ def main() -> int:
             "chain_gos": (13, fft_ops, 0, sel_least),
             "wire_ca": (8, fft_ops, 0, 0), "chain_int": (13, 0, fft_ops, 0),
             "chain_int_gos": (13, 0, fft_ops, sel_least)}
+    # the range-Doppler front: two FFTs along range a pulse and one along the
+    # pulses a range column; pulse compression: one FFT a frame
+    p_log2 = SHAPE[1].bit_length() - 1
+    rd_ops = (frames_n * 2 * 5 * SHAPE[-1] * bw
+              + SHAPE[0] * SHAPE[-1] * 5 * SHAPE[1] * p_log2)
+    pc_ops = (samples // PC_SHAPE[-1]) * 5 * PC_SHAPE[-1] * (
+        PC_SHAPE[-1].bit_length() - 1)
+    work.update({"rd_ca": (13, rd_ops, 0, 0), "rd_map": (16, rd_ops, 0, 0),
+                 "pc_ca": (13, pc_ops, 0, 0), "rd_2d": (13, rd_ops, 0, 0)})
     bounds = {}
     for name, (per, f32, i32, cmp) in work.items():
         byte_ms = per * samples / HBM_BYTES_PER_S * 1e3
@@ -682,10 +939,16 @@ def main() -> int:
             gchain.stage_names)
     profile(lambda: igchain(xi16, grt), "bit-true GOSCA chain, GOS registers",
             igchain.stage_names)
+    profile(lambda: rd_chain(x, rt), "range-Doppler kernel path",
+            rd_chain.stage_names)
+    profile(lambda: rd_plain(x, rt), "range-Doppler plain path",
+            rd_plain.stage_names)
+    profile(lambda: run2d(x, rt, rt2d), "2-D detector kernel path", ())
 
     errs = {"chain_ca": err_a, "mag_cfar": err_b, "mag_gos_cfar": err_c,
             "chain_gos": err_d, "wire_ca": err_e, "chain_int": err_f,
-            "chain_int_gos": err_g}
+            "chain_int_gos": err_g, "rd_ca": err_h, "rd_map": err_hm,
+            "pc_ca": err_i, "rd_2d": err_j}
     sources = {
         "chain_ca": ("chain_ca.cu", "rsp_chains_tpu/kernels/chain_pallas.py:841"),
         "mag_cfar": ("mag_cfar.cu", "rsp_chains_tpu/kernels/cfar_pallas.py:489"),
@@ -698,9 +961,13 @@ def main() -> int:
                       "rsp_chains_tpu/kernels/int_chain_pallas.py:441"),
         "chain_int_gos": ("chain_int_gos.cu",
                           "rsp_chains_tpu/kernels/int_chain_pallas.py:552"),
+        "rd_ca": ("rd_ca.cu", "rsp_chains_tpu/kernels/rd_pallas.py:565"),
+        "rd_map": ("rd_ca.cu", "rsp_chains_tpu/kernels/rd_pallas.py:565"),
+        "pc_ca": ("chain_ca.cu", "rsp_chains_tpu/kernels/chain_pallas.py:863"),
+        "rd_2d": ("rd_2d.cu", "rsp_chains_tpu/kernels/rd_pallas.py:442"),
     }
-    # no one PyTorch call computes FFT + magnitude + CFAR, so library_ms is
-    # null for every kernel
+    # no one PyTorch call computes FFT (or matched filter and Doppler
+    # transform) + magnitude + CFAR, so library_ms is null for every kernel
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"rsp_chains_tpu_torch/csrc/{src}", "replaces": replaces,

@@ -1,11 +1,13 @@
 """rsp_chains_tpu_torch: the PyTorch and CUDA port of ``rsp_chains_tpu``.
 
-This slice carries the main path, ``fft_mag_cfar_chain``, for the CA, GOS,
+The port carries the main path, ``fft_mag_cfar_chain``, for the CA, GOS,
 GOSCA and CASH CFAR (the default ``ChainConfig()`` is GOSCA + CASH) in float
-and in the bit-true integer pipeline, and the served wire top
-``rx_fft_mag_cfar_tx_chain``, on hand-written CUDA kernels for Hopper
-(``csrc/``), each with a plain PyTorch version that CPU tensors take. The
-package imports torch and numpy, never jax.
+and in the bit-true integer pipeline, the served wire top
+``rx_fft_mag_cfar_tx_chain``, and the 2-D family: pulse compression, the
+range-Doppler chain and its wire top, the 2-D map detector, beamforming and
+pulse integration. The kernels are hand-written CUDA for Hopper (``csrc/``),
+each with a plain PyTorch version that CPU tensors take. The package imports
+torch and numpy, never jax.
 """
 
 from .configs import (
@@ -30,5 +32,14 @@ from .configs import (
 from .chain import Chain, Stage
 from .cplx import C, as_pair, to_numpy
 from .ops.cfar import CfarOutput
-from .presets import fft_mag_cfar_chain, rx_fft_mag_cfar_tx_chain
+from .ops.cfar_2d import Cfar2dConfig, Cfar2dRuntime, cfar_2d_op, rd_2d_cfar_chain
+from .presets import (
+    beamformed_rd_chain,
+    fft_mag_cfar_chain,
+    integrated_search_chain,
+    pulse_compression_chain,
+    range_doppler_chain,
+    rx_fft_mag_cfar_tx_chain,
+    rx_rd_tx_chain,
+)
 from . import golden, packing

@@ -37,6 +37,16 @@ struct RspCaRegs {
   float scaler;
 };
 
+// Lets `kernel` take `smem` bytes of dynamic shared memory, opting in above
+// the 48 KB default.
+template <typename K>
+static inline cudaError_t rsp_opt_in(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
 static __device__ __forceinline__ float rsp_magnitude(float re, float im,
                                                       int mode) {
   if (mode == 0) return sqrtf(re * re + im * im);

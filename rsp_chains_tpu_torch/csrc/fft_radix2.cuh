@@ -1,5 +1,6 @@
-// The FFT front of the float whole-chain kernels (A: chain_ca.cu, D:
-// chain_gos.cu, E: wire_ca.cu):
+// The FFT front of the float whole-chain kernels (A and I: chain_ca.cu, D:
+// chain_gos.cu, E: wire_ca.cu, and the range rows of H and J,
+// rd_front.cuh):
 // an iterative radix-2 decimation in time in fp32 FMA over one frame in
 // shared memory.
 //
@@ -14,7 +15,7 @@
 #pragma once
 
 // The butterfly stages over one frame already in shared memory in
-// bit-reversed order, xr/xi (2^log2n floats each), 1 <= log2n <= 10; the
+// bit-reversed order, xr/xi (2^log2n floats each), 1 <= log2n <= 12; the
 // output is in natural order. Every thread of the block takes part; starts
 // and ends with __syncthreads(), so the loads before it and the spectrum
 // after it are visible to the whole block.
@@ -43,7 +44,7 @@ static __device__ __forceinline__ void rsp_fft_radix2_stages(
 }
 
 // Transforms re/im[0 .. 2^log2n) (device memory, one frame) into xr/xi
-// (shared memory, 2^log2n floats each), 1 <= log2n <= 10, as
+// (shared memory, 2^log2n floats each), 1 <= log2n <= 12, as
 // rsp_fft_radix2_stages.
 static __device__ __forceinline__ void rsp_fft_radix2(
     const float* __restrict__ re, const float* __restrict__ im,

@@ -51,3 +51,39 @@ def random_signal(num_samples: int, scale: int = 1, bin_point: int = 13,
             rng.rand(num_samples) * amp
         )
     return np.trunc(rng.rand(num_samples) * amp)
+
+
+def lfm_chirp(num_samples: int, f0: float = 0.0, f1: float = 0.25,
+              amplitude: float = 1.0) -> np.ndarray:
+    """Linear-FM chirp sweeping normalized frequency f0 -> f1 over the
+    pulse."""
+    t = np.arange(num_samples, dtype=np.float64)
+    k = (f1 - f0) / num_samples
+    phase = 2 * np.pi * (f0 * t + 0.5 * k * t * t)
+    return amplitude * np.exp(1j * phase)
+
+
+def chirp_with_targets(
+    num_pulses: int,
+    num_samples: int,
+    chirp: np.ndarray,
+    targets: list[tuple[int, float, float]],
+    noise_db: float = -40.0,
+    seed: int = DEFAULT_SEED,
+) -> np.ndarray:
+    """A CPI of chirp returns, [num_pulses, num_samples] complex: each target
+    is (delay_samples, amplitude, normalized_doppler), plus complex Gaussian
+    noise at ``noise_db``. The pulse-compression and range-Doppler test
+    vector."""
+    rng = np.random.RandomState(seed)
+    m = len(chirp)
+    cpi = np.zeros((num_pulses, num_samples), np.complex128)
+    for delay, amp, fd in targets:
+        pulse_phase = np.exp(2j * np.pi * fd * np.arange(num_pulses))
+        end = min(delay + m, num_samples)
+        for p in range(num_pulses):
+            cpi[p, delay:end] += amp * pulse_phase[p] * chirp[: end - delay]
+    sigma = 10 ** (noise_db / 20.0)
+    cpi += sigma * (rng.randn(num_pulses, num_samples) +
+                    1j * rng.randn(num_pulses, num_samples)) / np.sqrt(2)
+    return cpi

@@ -11,6 +11,12 @@ chain stages that honour the FFT-size and CFAR registers.
   packed ``{threshold | bin | peak}`` words out. Replaces
   ``chain_pallas.py::fused_chain_ca_packed`` (:1042, ``pallas_call`` :1122);
   CUDA source ``csrc/wire_ca.cu``. It moves 8 bytes per sample, not 13.
+* Kernel I, ``pc_ca``: the collapsed pulse-compression chain, Kernel A with
+  the matched filter's reference spectrum H multiplied into the spectrum
+  before the magnitude, frames up to N = 4096. Replaces the ``h_block``
+  variant of ``chain_pallas.py::fused_chain_ca`` (operand :997-1006); CUDA
+  source ``csrc/chain_ca.cu``, Kernel A's body with the product as a
+  template flag and an entry of its own.
 * ``fused_chain_ca_op``, ``fused_chain_gos_op`` and ``fused_wire_chain_op``,
   the ports of ``chain_pallas.py:1402``, ``:1350`` and ``:1432``.
 
@@ -30,7 +36,7 @@ import numpy as np
 import torch
 
 from ..configs import CfarConfig, FftConfig, RuntimeConfig
-from ..cplx import CLike, as_pair
+from ..cplx import C, CLike, as_pair, join
 from ..ops.cfar import CfarOutput
 from ..ops.fft import check_keep_msb, fft_op, fft_scale
 from ..packing import as_words, pack_cfar_words, unpack_iq_pair
@@ -41,6 +47,7 @@ from .cfar import (
 )
 
 FUSABLE_SIZES = (256, 512, 1024)
+PC_SIZES = (256, 512, 1024, 2048, 4096)   # Kernel I (presets.py:462-464)
 
 
 @functools.lru_cache(maxsize=None)
@@ -189,3 +196,44 @@ def fused_wire_chain_op(words, rt: RuntimeConfig, fft_cfg: FftConfig,
     out = mag_cfar(fft_op(unpack_iq_pair(w), rt.log2_fft_size, fft_cfg), rt,
                    cfar_cfg)
     return pack_cfar_words(out.threshold, out.peaks, fft_cfg.log2_max)
+
+
+def pc_ca_reference(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
+                    cfar_cfg: CfarConfig, h: torch.Tensor) -> CfarOutput:
+    """The plain PyTorch version of ``pc_ca``: the full-size ``fft_op``, the
+    product with ``h`` ([2, N] re / im planes), then
+    ``mag_cfar_reference``."""
+    s = join(fft_op(as_pair(x), None, fft_cfg)) * torch.complex(h[0], h[1])
+    return mag_cfar_reference(C(s.real, s.imag), rt, cfar_cfg)
+
+
+def pc_ca(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
+          cfar_cfg: CfarConfig, h: torch.Tensor) -> CfarOutput:
+    """FFT, product with the matched filter's reference spectrum ``h``
+    ([2, N] float32 re / im planes in natural bin order, ``ops.matched_filter.
+    h_planes``), magnitude and CA-family CFAR at the full elaborated FFT size
+    over IQ frames ``[..., N]``, N = ``fft_cfg.max_size`` in {256, ...,
+    4096}: the collapsed pulse compression. Returns threshold float32 and
+    peaks bool."""
+    xp = as_pair(x)
+    n = xp.shape[-1]
+    if n != fft_cfg.max_size or n not in PC_SIZES:
+        raise ValueError(f"pc_ca takes frames of max_size in {PC_SIZES}, got "
+                         f"{n} (max_size {fft_cfg.max_size})")
+    if fft_cfg.window is not None or not fft_cfg.use_bit_reverse:
+        raise ValueError("pc_ca computes no window and emits natural order")
+    check_keep_msb(fft_cfg)
+    check_window_bounds(cfar_cfg)
+    if tuple(h.shape) != (2, n):
+        raise ValueError(f"h must be [2, {n}], got {tuple(h.shape)}")
+    if takes_plain_path(xp, "pc_ca"):
+        return pc_ca_reference(xp, rt, fft_cfg, cfar_cfg, h)
+    h = h.contiguous()
+    check_cuda_operands(h, dtype=torch.float32)
+    if h.device != xp.device:
+        raise ValueError("h must lie on the frames' device")
+    fn = entry("rsp_pc_ca", ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+               ctypes.c_float, CaRegs)
+    return launch("pc_ca", xp, fn, _twiddles(n, xp.device).data_ptr(),
+                  h.data_ptr(), n.bit_length() - 1, fft_scale(n, fft_cfg),
+                  ca_registers(rt, cfar_cfg, n))

@@ -28,6 +28,22 @@ fusable FFT runs one stage, ``rx_fft_mag_cfar_tx_fused``:
 ``fused_wire_chain_op`` (Kernel E); any other elaboration runs ``rx_unpack``,
 the stages of ``fft_mag_cfar_chain`` and ``tx_pack``.
 
+``pulse_compression_chain`` (BASELINE config 2: matched filter -> range FFT
+-> magnitude -> CFAR per pulse): the circular matched filter and the FFT
+collapse to FFT(x) * H at the full FFT size. A CA elaboration of a kernel
+size runs one stage, ``pc_fused`` (Kernel I, or the matched filter, the FFT
+and Kernel B for a shrunken FFT-size register); another collapsible
+elaboration runs ``spectral_mf`` and the tail; the rest the four stages.
+
+``range_doppler_chain`` (BASELINE config 3: matched filter -> Doppler FFT ->
+magnitude -> CFAR along range per Doppler bin), over CPI blocks
+``[..., P, N]``: a CA elaboration that ``rd_fusable`` admits runs one stage,
+``rd_fused`` (Kernel H); a GOS / GOSCA one ``rd_map_fused`` (Kernel H's map)
+and ``mag_gos_cfar_fused`` (Kernel B or C); the rest the matched-filter and
+Doppler stages and the tail. ``rx_rd_tx_chain`` wraps it in the wire format;
+``beamformed_rd_chain`` puts beams in front of it; ``integrated_search_chain``
+integrates pulses instead of a Doppler filter bank.
+
 Every preset takes ``device``: where numpy input goes, CUDA unless the
 caller passes ``device="cpu"`` (``chain.Chain``).
 """
@@ -36,20 +52,35 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
+import torch
+
 from . import packing
 from .chain import Chain, Stage
-from .configs import ChainConfig
+from .configs import (
+    ChainConfig, DopplerConfig, FftConfig, MatchedFilterConfig, RuntimeConfig,
+)
+from .cplx import C, as_pair, join
+from .golden.fixtures import lfm_chirp
 from .kernels.cfar import (
     GOS_TILE, fused_mag_gos_dispatch, fused_tail_kind, mag_cfar,
 )
 from .kernels.chain import (
-    FUSABLE_SIZES, fused_chain_ca_op, fused_chain_gos_op, fused_wire_chain_op,
+    FUSABLE_SIZES, PC_SIZES, _full_size, fused_chain_ca_op, fused_chain_gos_op,
+    fused_wire_chain_op, pc_ca,
 )
 from .kernels.int_chain import fused_chain_int_op, int_chain_fusable
+from .kernels.rd import fused_rd_chain, rd_fusable
+from .ops.beamform import beamform, fft_beamform, ula_steering
 from .ops.bit_true import cfar_int, fft_int_op, mag_int_op
-from .ops.cfar import cfar_op
+from .ops.cfar import CfarOutput, cfar_op
+from .ops.doppler import doppler_fft
 from .ops.fft import fft_op
+from .ops.integrate import (
+    binary_integration, coherent_integration, noncoherent_integration,
+)
 from .ops.logmag import logmag
+from .ops.matched_filter import h_planes, matched_filter, matched_filter_os
 
 
 def _bit_true(cfg: ChainConfig) -> bool:
@@ -75,6 +106,21 @@ def cfar_stage(cfg: ChainConfig) -> Stage:
         return Stage("cfar_int", lambda x, rt: cfar_int(x, rt, cfg.cfar),
                      terminal=True)
     return Stage("cfar", lambda x, rt: cfar_op(x, rt, cfg.cfar), terminal=True)
+
+
+def matched_filter_stage(cfg: ChainConfig, taps) -> Stage:
+    mf_cfg = cfg.matched_filter or MatchedFilterConfig()
+    taps_np = np.asarray(taps)
+    if mf_cfg.method == "overlap_save":
+        return Stage("matched_filter_os",
+                     lambda x, rt: matched_filter_os(x, taps_np, mf_cfg))
+    return Stage("matched_filter",
+                 lambda x, rt: matched_filter(x, taps_np, mf_cfg))
+
+
+def doppler_stage(cfg: ChainConfig) -> Stage:
+    dop_cfg = cfg.doppler or DopplerConfig()
+    return Stage("doppler_fft", lambda x, rt: doppler_fft(x, dop_cfg))
 
 
 def _int_fused_stage(cfg: ChainConfig) -> Optional[Stage]:
@@ -178,3 +224,180 @@ def rx_fft_mag_cfar_tx_chain(cfg: Optional[ChainConfig] = None,
     core = fft_mag_cfar_chain(cfg)
     return Chain(cfg, [_wire_rx_stage(), *core.stages, _wire_tx_stage(cfg)],
                  device)
+
+
+def _lsb_keep(cfg: ChainConfig) -> bool:
+    return (cfg.fft.keep_msb_or_lsb is not None
+            and not all(cfg.fft.keep_msb_or_lsb))
+
+
+def pulse_compression_chain(cfg: Optional[ChainConfig] = None, taps=None,
+                            device=None) -> Chain:
+    """BASELINE config 2, ``process(iq, rt) -> CfarOutput`` over frames
+    ``[..., N]``: matched filter -> range FFT -> magnitude -> CFAR, with the
+    JAX package's routing (``presets.py:427-526``). At the full FFT-size
+    register the circular matched filter and the FFT collapse to
+    FFT(x) * H, exactly; a smaller runtime size changes the matched filter
+    itself and keeps the literal composition (a host ``if``)."""
+    cfg = cfg or ChainConfig(fft=FftConfig(max_size=4096),
+                             matched_filter=MatchedFilterConfig(fft_size=4096))
+    if taps is None:
+        taps = lfm_chirp(cfg.matched_filter.num_taps if cfg.matched_filter
+                         else 128)
+    mf_cfg = cfg.matched_filter or MatchedFilterConfig()
+    taps_np = np.asarray(taps)
+    n = cfg.fft.max_size
+    collapsible = (
+        mf_cfg.method == "freq"
+        and cfg.fft.window is None
+        and cfg.fft.use_bit_reverse
+        and not _bit_true(cfg)
+        and taps_np.shape[-1] <= n
+        and not _lsb_keep(cfg))
+
+    def small(xp, rt):
+        return fft_op(matched_filter(xp, taps_np, mf_cfg), rt.log2_fft_size,
+                      cfg.fft)
+
+    if (collapsible and fused_tail_kind(cfg) == "ca" and n in PC_SIZES
+            and cfg.fft.use_mxu):
+        def pc_fused(x, rt: RuntimeConfig):
+            xp = as_pair(x)
+            if _full_size(rt, cfg.fft):
+                return pc_ca(xp, rt, cfg.fft, cfg.cfar,
+                             h_planes(taps_np, n, mf_cfg.normalize, xp.device))
+            return mag_cfar(small(xp, rt), rt, cfg.cfar)
+
+        return Chain(cfg, [Stage("pc_fused", pc_fused, terminal=True)], device)
+    if collapsible:
+        def spectral_mf(x, rt: RuntimeConfig):
+            xp = as_pair(x)
+            if not _full_size(rt, cfg.fft):
+                return small(xp, rt)
+            h = h_planes(taps_np, n, mf_cfg.normalize, xp.device)
+            s = join(fft_op(xp, None, cfg.fft)) * torch.complex(h[0], h[1])
+            return C(s.real.contiguous(), s.imag.contiguous())
+
+        return Chain(cfg, [Stage("spectral_mf", spectral_mf),
+                           *tail_stages(cfg)], device)
+    return Chain(cfg, [matched_filter_stage(cfg, taps_np), fft_stage(cfg),
+                       mag_stage(cfg), cfar_stage(cfg)], device)
+
+
+def range_doppler_chain(cfg: Optional[ChainConfig] = None, taps=None,
+                        device=None) -> Chain:
+    """BASELINE config 3 (the flagship), ``process(cpi, rt) -> CfarOutput``
+    over CPI blocks ``[..., P, N]`` (P pulses, N range samples): matched
+    filter along range -> Doppler FFT over the pulses -> magnitude -> CFAR
+    along range per Doppler bin, with the JAX package's routing
+    (``presets.py:529-610``). With no ``MatchedFilterConfig`` elaborated
+    there is no filter stage."""
+    cfg = cfg or ChainConfig(doppler=DopplerConfig())
+    if _lsb_keep(cfg):
+        raise ValueError(
+            "keepMSBorLSB = LSB has no analog in the range-Doppler chain (its "
+            "matched filter is a float frequency-domain correlation, not the "
+            "register-mapped FFT stage); elaborate all-MSB")
+    if cfg.matched_filter is None:
+        if taps is not None:
+            raise ValueError(
+                "taps given but cfg.matched_filter is None: elaborate a "
+                "MatchedFilterConfig for the filter stage to exist")
+        return Chain(cfg, [doppler_stage(cfg), *tail_stages(cfg)], device)
+    if taps is None:
+        taps = lfm_chirp(cfg.matched_filter.num_taps)
+    taps_np = np.asarray(taps)
+    kind = fused_tail_kind(cfg)
+    if kind is not None and rd_fusable(cfg, taps_np):
+        if kind == "ca":
+            return Chain(cfg, [Stage(
+                "rd_fused", lambda x, rt: fused_rd_chain(x, rt, taps_np, cfg),
+                terminal=True)], device)
+        if kind == "gos" and cfg.fft.max_size % GOS_TILE == 0:
+            return Chain(cfg, [
+                Stage("rd_map_fused",
+                      lambda x, rt: fused_rd_chain(x, rt, taps_np, cfg,
+                                                   emit="map")),
+                Stage("mag_gos_cfar_fused",
+                      lambda x, rt: fused_mag_gos_dispatch(x, rt, cfg.cfar),
+                      terminal=True)], device)
+    return Chain(cfg, [matched_filter_stage(cfg, taps_np), doppler_stage(cfg),
+                       *tail_stages(cfg)], device)
+
+
+def rx_rd_tx_chain(cfg: Optional[ChainConfig] = None, taps=None,
+                   device=None) -> Chain:
+    """The served range-Doppler top: packed IQ beat words ``[..., P, N]`` in,
+    packed ``{threshold | bin | peak}`` words of every map cell out (an
+    int32 view), around ``range_doppler_chain``."""
+    cfg = cfg or ChainConfig(doppler=DopplerConfig())
+    core = range_doppler_chain(cfg, taps=taps)
+    return Chain(cfg, [_wire_rx_stage(), *core.stages, _wire_tx_stage(cfg)],
+                 device)
+
+
+def beamformed_rd_chain(cfg: Optional[ChainConfig] = None, taps=None,
+                        angles_rad=None, num_channels: int = 8,
+                        fft_beams: bool = False, device=None) -> Chain:
+    """Element-space CPIs ``[..., C, P, N]`` -> beams -> range-Doppler:
+    ``CfarOutput`` over ``[..., B, P, N]``. Conventional beams steered at
+    ``angles_rad`` for a half-wavelength ULA, or with ``fft_beams`` the DFT
+    beam space (C beams)."""
+    cfg = cfg or ChainConfig(doppler=DopplerConfig())
+    if angles_rad is None:
+        angles_rad = np.deg2rad(np.linspace(-60, 60, 8))
+    weights = None if fft_beams else ula_steering(num_channels, angles_rad)
+
+    def bf(x, rt):
+        xp = as_pair(x)
+        c, p, n = xp.shape[-3:]
+        if c != num_channels:
+            raise ValueError(f"{c} channels, the chain was built for "
+                             f"{num_channels}")
+        flat = C(xp.re.reshape(xp.shape[:-2] + (p * n,)),
+                 xp.im.reshape(xp.shape[:-2] + (p * n,)))
+        y = fft_beamform(flat) if fft_beams else beamform(flat, weights)
+        return C(y.re.reshape(y.shape[:-1] + (p, n)),
+                 y.im.reshape(y.shape[:-1] + (p, n)))
+
+    rd = range_doppler_chain(cfg, taps=taps)
+    return Chain(cfg, [Stage("fft_beamform" if fft_beams else "beamform", bf),
+                       *rd.stages], device)
+
+
+def integrated_search_chain(cfg: Optional[ChainConfig] = None, taps=None,
+                            mode: str = "noncoherent", m_of_n: int = 0,
+                            device=None) -> Chain:
+    """Search-mode pulse integration over CPIs ``[..., P, N]`` (no Doppler
+    filter bank): the matched filter per pulse, then ``noncoherent``
+    (magnitude mean over pulses before the CFAR), ``coherent`` (complex sum
+    before the magnitude) or ``binary`` (per-pulse CFAR decisions fused
+    m-of-n; the threshold is the per-pulse mean). ``CfarOutput`` over
+    ``[..., N]``."""
+    cfg = cfg or ChainConfig()
+    if taps is None:
+        taps = lfm_chirp((cfg.matched_filter or MatchedFilterConfig()).num_taps)
+    if mode not in ("noncoherent", "coherent", "binary"):
+        raise ValueError(f"mode {mode!r} (choose 'noncoherent', 'coherent' "
+                         "or 'binary')")
+    if mode == "binary" and m_of_n < 1:
+        raise ValueError("binary integration needs m_of_n >= 1")
+    mf, mag, cfar = matched_filter_stage(cfg, taps), mag_stage(cfg), cfar_stage(cfg)
+    if mode == "coherent":
+        def integ(x, rt):
+            xp = as_pair(x)
+            return C(coherent_integration(xp.re), coherent_integration(xp.im))
+
+        stages = [mf, Stage("coherent_integration", integ), mag, cfar]
+    elif mode == "noncoherent":
+        stages = [mf, mag, Stage("noncoherent_integration",
+                                 lambda m, rt: noncoherent_integration(m)),
+                  cfar]
+    else:
+        def fuse(out, rt):
+            return CfarOutput(threshold=out.threshold.mean(dim=-2),
+                              peaks=binary_integration(out.peaks, m_of_n))
+
+        stages = [mf, mag, cfar,
+                  Stage("binary_integration", fuse, terminal=True)]
+    return Chain(cfg, stages, device)

@@ -7,8 +7,9 @@ JAX; elsewhere every test skips. On the card:
 Bars: for the float kernels the bench's, max|dthr| / max|thr| < 1e-4 (the
 kernel's radix-2 fp32 FFT and direct window sums round differently from
 torch.fft and the dyadic box sums) and peak flips <= 1e-5 of the cells; for
-the wire kernel the bench's wire bar on the decoded fields; for the integer
-kernels equality."""
+the complex range-Doppler map max|dmap| / max|map| < 1e-4; for the wire
+kernel the bench's wire bar on the decoded fields; for the integer kernels
+equality."""
 
 import dataclasses
 
@@ -21,6 +22,7 @@ from rsp_chains_tpu_torch.kernels import _build
 from rsp_chains_tpu_torch.kernels import cfar as kcfar
 from rsp_chains_tpu_torch.kernels import chain as kchain
 from rsp_chains_tpu_torch.kernels import int_chain as kint
+from rsp_chains_tpu_torch.kernels import rd as krd
 from rsp_chains_tpu_torch.ops.fft import fft_op
 
 pytestmark = pytest.mark.cuda
@@ -498,3 +500,319 @@ def test_new_wrappers_refuse_bad_operands(dev):
     big = _int_iq((1, 32768), dev)
     with pytest.raises(ValueError, match="power of two in"):
         kint.chain_int_gos(big, rt, rsp.FftConfig(max_size=32768), gcfg.cfar)
+
+
+# ---- the range-Doppler family: Kernels H (rd_ca / rd_map), I (pc_ca) and
+# J (rd_2d) ----
+
+def _rd_cfg(p, n, variant=rsp.CfarVariant.CA, include_cash=False,
+            window="hann", fft_shift=True, scaling=rsp.FftScaling.DIV_N):
+    return rsp.ChainConfig(
+        fft=rsp.FftConfig(max_size=n),
+        matched_filter=rsp.MatchedFilterConfig(num_taps=128, fft_size=n),
+        doppler=rsp.DopplerConfig(num_pulses=p, window=window,
+                                  fft_shift=fft_shift, scaling=scaling),
+        cfar=rsp.CfarConfig(max_ref_window=64, max_fft_size=n,
+                            variant=variant, include_cash=include_cash))
+
+
+TAPS = rsp.golden.lfm_chirp(128, 0.0, 0.25)
+
+
+def _cpi(shape, dev, seed=0):
+    """CPIs with a moving chirp target at range 40 over noise."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(*shape) + 1j * rng.randn(*shape)
+    x[..., 40:168] += 3 * TAPS * np.exp(0.7j * np.arange(shape[-2]))[:, None]
+    return rsp.as_pair(x.astype(np.complex64), device=dev)
+
+
+def _assert_map_close(got, want):
+    torch.cuda.synchronize()
+    err = max((got.re - want.re).abs().max().item(),
+              (got.im - want.im).abs().max().item())
+    scale = max(want.re.abs().max().item(), want.im.abs().max().item())
+    assert err / scale < 1e-4, err / scale
+
+
+RD_SHAPES = [(8, 256), (64, 512), (64, 1024), (512, 1024)]
+
+
+@pytest.mark.parametrize("p, n", RD_SHAPES)
+@pytest.mark.parametrize("regs", REGS)
+def test_rd_ca_matches_reference(dev, p, n, regs):
+    cfg = _rd_cfg(p, n)
+    x = _cpi((2, p, n), dev)
+    rt = rsp.RuntimeConfig.make(**{"fft_size": n, **regs})
+    before = _build.LAUNCHES["rd_ca"]
+    got = krd.fused_rd_chain(x, rt, TAPS, cfg)
+    assert _build.LAUNCHES["rd_ca"] == before + 1
+    _assert_close(got, krd.fused_rd_chain_reference(x, rt, TAPS, cfg))
+
+
+@pytest.mark.parametrize("p, n", RD_SHAPES)
+@pytest.mark.parametrize("window, fft_shift, scaling", [
+    ("hann", True, rsp.FftScaling.DIV_N),
+    (None, False, rsp.FftScaling.NONE),
+    ("taylor", True, rsp.FftScaling.SQRT_N),
+])
+def test_rd_map_matches_reference(dev, p, n, window, fft_shift, scaling):
+    cfg = _rd_cfg(p, n, window=window, fft_shift=fft_shift, scaling=scaling)
+    x = _cpi((3, p, n), dev, seed=1)
+    rt = rsp.RuntimeConfig.make(fft_size=n)
+    before = _build.LAUNCHES["rd_map"]
+    got = krd.fused_rd_chain(x, rt, TAPS, cfg, emit="map")
+    assert _build.LAUNCHES["rd_map"] == before + 1
+    _assert_map_close(got, krd.fused_rd_chain_reference(x, rt, TAPS, cfg,
+                                                        emit="map"))
+
+
+def _pc_cfg(n):
+    return rsp.ChainConfig(
+        fft=rsp.FftConfig(max_size=n),
+        matched_filter=rsp.MatchedFilterConfig(num_taps=128, fft_size=n),
+        cfar=rsp.CfarConfig(max_ref_window=64, max_fft_size=n,
+                            variant=rsp.CfarVariant.CA, include_cash=False))
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("regs", REGS)
+def test_pc_ca_matches_reference(dev, n, regs):
+    from rsp_chains_tpu_torch.ops.matched_filter import h_planes
+
+    cfg = _pc_cfg(n)
+    x = _cpi((11, n), dev, seed=2)
+    h = h_planes(TAPS, n, True, dev)
+    rt = rsp.RuntimeConfig.make(**{"fft_size": n, **regs})
+    before = _build.LAUNCHES["pc_ca"]
+    got = kchain.pc_ca(x, rt, cfg.fft, cfg.cfar, h)
+    assert _build.LAUNCHES["pc_ca"] == before + 1
+    _assert_close(got, kchain.pc_ca_reference(x, rt, cfg.fft, cfg.cfar, h))
+
+
+RD2_REGS = [
+    dict(ref_range=8, guard_range=2, ref_doppler=4, guard_doppler=1,
+         threshold_scaler=6.0),
+    dict(ref_range=16, guard_range=4, ref_doppler=8, guard_doppler=2,
+         threshold_scaler=4.0, peak_grouping=1),
+    dict(ref_range=1, guard_range=0, ref_doppler=1, guard_doppler=0,
+         threshold_scaler=3.0),
+    dict(ref_range=4, guard_range=1, ref_doppler=2, guard_doppler=1,
+         threshold_scaler=2.0, log_or_linear=0, active_range=768),
+    dict(ref_range=8, guard_range=2, ref_doppler=4, guard_doppler=1,
+         threshold_scaler=6.0, active_range=200, peak_grouping=1),
+]
+
+
+@pytest.mark.parametrize("p, n", RD_SHAPES)
+@pytest.mark.parametrize("regs2", RD2_REGS)
+@pytest.mark.parametrize("mag_mode", [2, 3])
+def test_rd_2d_matches_reference(dev, p, n, regs2, mag_mode):
+    cfg = _rd_cfg(p, n)
+    cfg2d = rsp.Cfar2dConfig()
+    x = _cpi((2, p, n), dev, seed=3)
+    rt = rsp.RuntimeConfig.make(fft_size=n, mag_mode=mag_mode)
+    rt2 = rsp.Cfar2dRuntime.make(**regs2)
+    before = _build.LAUNCHES["rd_2d"]
+    got = krd.fused_rd_2d_chain(x, rt, rt2, TAPS, cfg, cfg2d)
+    assert _build.LAUNCHES["rd_2d"] == before + 1
+    _assert_close(got, krd.fused_rd_2d_chain_reference(x, rt, rt2, TAPS, cfg,
+                                                       cfg2d))
+
+
+def test_rd_2d_clamps_raw_register_writes(dev):
+    cfg = _rd_cfg(64, 1024)
+    cfg2d = rsp.Cfar2dConfig(max_ref_range=8, max_guard_range=2,
+                             max_ref_doppler=4, max_guard_doppler=1)
+    x = _cpi((2, 64, 1024), dev, seed=4)
+    rt = rsp.RuntimeConfig.make(fft_size=1024)
+    rt2 = dataclasses.replace(
+        rsp.Cfar2dRuntime.make(ref_range=8, guard_range=2, ref_doppler=4,
+                               guard_doppler=1, threshold_scaler=5.0),
+        ref_range=40, guard_range=-3, ref_doppler=0, guard_doppler=9,
+        active_range=5000)
+    got = krd.fused_rd_2d_chain(x, rt, rt2, TAPS, cfg, cfg2d)
+    _assert_close(got, krd.fused_rd_2d_chain_reference(x, rt, rt2, TAPS, cfg,
+                                                       cfg2d))
+
+
+@pytest.mark.parametrize("p", [8, 64, 512])
+@pytest.mark.parametrize("ref_doppler, guard_doppler", [
+    (52, 8), (250, 5), (600, 0)])
+def test_rd_2d_takes_any_doppler_reach(dev, p, ref_doppler, guard_doppler):
+    # Doppler reaches past any fixed tile halo, up to one wider than the CPI
+    cfg = _rd_cfg(p, 1024)
+    cfg2d = rsp.Cfar2dConfig(max_ref_doppler=ref_doppler,
+                             max_guard_doppler=guard_doppler)
+    x = _cpi((2, p, 1024), dev, seed=9)
+    rt = rsp.RuntimeConfig.make(fft_size=1024)
+    rt2 = rsp.Cfar2dRuntime.make(ref_range=16, guard_range=4,
+                                 ref_doppler=ref_doppler,
+                                 guard_doppler=guard_doppler,
+                                 threshold_scaler=2.5, peak_grouping=1)
+    before = _build.LAUNCHES["rd_2d"]
+    got = krd.fused_rd_2d_chain(x, rt, rt2, TAPS, cfg, cfg2d)
+    assert _build.LAUNCHES["rd_2d"] == before + 1
+    _assert_close(got, krd.fused_rd_2d_chain_reference(x, rt, rt2, TAPS, cfg,
+                                                       cfg2d))
+
+
+def test_rd_2d_takes_more_cpis_than_a_grid_axis_of_65535(dev):
+    p, n, batch = 8, 256, 65537
+    cfg = _rd_cfg(p, n)
+    cfg2d = rsp.Cfar2dConfig()
+    rng = torch.Generator(device=dev).manual_seed(10)
+    x = rsp.C(*(torch.randn(batch, p, n, device=dev, generator=rng)
+                for _ in range(2)))
+    rt = rsp.RuntimeConfig.make(fft_size=n)
+    rt2 = rsp.Cfar2dRuntime.make(ref_range=8, guard_range=2, ref_doppler=4,
+                                 guard_doppler=1, threshold_scaler=2.5)
+    got = krd.fused_rd_2d_chain(x, rt, rt2, TAPS, cfg, cfg2d)
+    for sl in (slice(0, 2), slice(batch - 2, batch)):
+        want = krd.fused_rd_2d_chain_reference(
+            rsp.C(x.re[sl], x.im[sl]), rt, rt2, TAPS, cfg, cfg2d)
+        _assert_close(type(got)(threshold=got.threshold[sl],
+                                peaks=got.peaks[sl]), want)
+
+
+def _took(before):
+    after = dict(_build.LAUNCHES)
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
+
+
+def _plain(cfg):
+    return dataclasses.replace(cfg, cfar=dataclasses.replace(
+        cfg.cfar, use_pallas=False))
+
+
+@pytest.mark.parametrize("variant, include_cash, regs, stages, kernels", [
+    (rsp.CfarVariant.CA, False, dict(), ("rd_fused",), {"rd_ca": 1}),
+    (rsp.CfarVariant.CA, False, dict(cfar_fft_size=768, cfar_mode=1),
+     ("rd_fused",), {"rd_ca": 1}),
+    (rsp.CfarVariant.GOSCA, True, GOS, ("rd_map_fused", "mag_gos_cfar_fused"),
+     {"rd_map": 1, "mag_gos_cfar": 1}),
+    (rsp.CfarVariant.GOSCA, True, dict(), ("rd_map_fused",
+                                           "mag_gos_cfar_fused"),
+     {"rd_map": 1, "mag_cfar": 1}),
+])
+def test_range_doppler_chain_launches_its_kernels(dev, variant, include_cash,
+                                                  regs, stages, kernels):
+    cfg = _rd_cfg(64, 1024, variant=variant, include_cash=include_cash)
+    chain = rsp.range_doppler_chain(cfg, taps=TAPS)
+    assert chain.stage_names == stages
+    x = _cpi((3, 64, 1024), dev, seed=5)
+    rt = rsp.RuntimeConfig.make(**{"fft_size": 1024, **regs})
+    before = dict(_build.LAUNCHES)
+    got = chain(x, rt)
+    assert _took(before) == kernels
+    plain = rsp.range_doppler_chain(_plain(cfg), taps=TAPS)
+    assert plain.stage_names == ("matched_filter", "doppler_fft", "logmag",
+                                 "cfar")
+    _assert_close(got, plain(x, rt))
+
+
+def test_range_doppler_chain_detects_the_target_cell(dev):
+    p, n, delay, fd = 256, 1024, 300, 0.125
+    cfg = _rd_cfg(p, n)
+    cpi = rsp.golden.chirp_with_targets(p, n, TAPS, [(delay, 1.0, fd)])
+    rt = rsp.RuntimeConfig.make(fft_size=n, ref_window_size=32,
+                                guard_window_size=4, threshold_scaler=8.0,
+                                div_sum=5, peak_grouping=1)
+    out = rsp.range_doppler_chain(cfg, taps=TAPS)(cpi.astype(np.complex64), rt)
+    rd = krd.fused_rd_chain(rsp.as_pair(cpi.astype(np.complex64), device=dev),
+                            rt, TAPS, cfg, emit="map")
+    mag = (rd.re ** 2 + rd.im ** 2).cpu().numpy()
+    cell = (p // 2 + int(fd * p), delay)
+    assert np.unravel_index(mag.argmax(), mag.shape) == cell
+    assert bool(out.peaks[cell])
+
+
+@pytest.mark.parametrize("regs, kernel", [
+    (dict(), "pc_ca"), (dict(fft_size=2048), "mag_cfar")])
+def test_pulse_compression_chain_launches_the_kernel_its_registers_select(
+        dev, regs, kernel):
+    cfg = _pc_cfg(4096)
+    chain = rsp.pulse_compression_chain(cfg, taps=TAPS)
+    assert chain.stage_names == ("pc_fused",)
+    x = _cpi((6, 4096), dev, seed=6)
+    rt = rsp.RuntimeConfig.make(**{"fft_size": 4096, **regs})
+    before = dict(_build.LAUNCHES)
+    got = chain(x, rt)
+    assert _took(before) == {kernel: 1}
+    plain = rsp.pulse_compression_chain(_plain(cfg), taps=TAPS)
+    assert plain.stage_names == ("spectral_mf", "logmag", "cfar")
+    _assert_close(got, plain(x, rt))
+
+
+def test_rx_rd_tx_chain_launches_rd_ca(dev):
+    cfg = _rd_cfg(64, 1024)
+    chain = rsp.rx_rd_tx_chain(cfg, taps=TAPS)
+    assert chain.stage_names == ("rx_unpack", "rd_fused", "tx_pack")
+    w = _words((2, 64, 1024), dev, seed=7)
+    rt = rsp.RuntimeConfig.make(fft_size=1024)
+    before = dict(_build.LAUNCHES)
+    got = chain(w, rt)
+    assert _took(before) == {"rd_ca": 1}
+    _assert_wire_bar(got, rsp.rx_rd_tx_chain(_plain(cfg), taps=TAPS)(w, rt),
+                     10)
+
+
+@pytest.mark.parametrize("cfg2d, kernels", [
+    (rsp.Cfar2dConfig(), {"rd_2d": 1}),
+    (rsp.Cfar2dConfig(max_ref_range=4, max_guard_range=1, max_ref_doppler=2,
+                      max_guard_doppler=1, include_os=True), {"rd_map": 1}),
+    (rsp.Cfar2dConfig(max_ref_doppler=64, max_guard_doppler=16),
+     {"rd_2d": 1}),
+])
+def test_rd_2d_cfar_chain_launches_its_kernels(dev, cfg2d, kernels):
+    cfg = _rd_cfg(64, 1024)
+    run = rsp.rd_2d_cfar_chain(cfg, taps=TAPS, cfg2d=cfg2d)
+    x = _cpi((2, 64, 1024), dev, seed=8)
+    rt = rsp.RuntimeConfig.make(fft_size=1024)
+    rt2 = rsp.Cfar2dRuntime.make(ref_range=4, guard_range=1, ref_doppler=2,
+                                 guard_doppler=1, threshold_scaler=5.0,
+                                 peak_grouping=1)
+    before = dict(_build.LAUNCHES)
+    got = run(x, rt, rt2)
+    assert _took(before) == kernels
+    plain = rsp.rd_2d_cfar_chain(_plain(cfg), taps=TAPS, cfg2d=cfg2d)
+    assert not plain.fusable
+    _assert_close(got, plain(x, rt, rt2))
+
+
+def test_rd_register_writes_build_once(dev):
+    cfg = _rd_cfg(64, 1024)
+    x = _cpi((2, 64, 1024), dev)
+    chain = rsp.range_doppler_chain(cfg, taps=TAPS)
+    for regs in REGS:
+        chain(x, rsp.RuntimeConfig.make(**{"fft_size": 1024, **regs}))
+    run = rsp.rd_2d_cfar_chain(cfg, taps=TAPS)
+    rt = rsp.RuntimeConfig.make(fft_size=1024)
+    for regs2 in RD2_REGS:
+        run(x, rt, rsp.Cfar2dRuntime.make(**regs2))
+    torch.cuda.synchronize()
+    assert _build.BUILDS == 1
+
+
+def test_rd_wrappers_refuse_bad_operands(dev):
+    cfg = _rd_cfg(64, 1024)
+    rt = rsp.RuntimeConfig.make(fft_size=1024)
+    x = _cpi((2, 64, 1024), dev)
+    with pytest.raises(ValueError):
+        krd.fused_rd_chain(rsp.C(x.re.double(), x.im.double()), rt, TAPS, cfg)
+    with pytest.raises(ValueError):
+        krd.fused_rd_chain(rsp.C(x.re, x.im.cpu()), rt, TAPS, cfg)
+    with pytest.raises(ValueError, match="num_pulses"):
+        krd.fused_rd_chain(rsp.C(x.re[:, :32].contiguous(),
+                                 x.im[:, :32].contiguous()), rt, TAPS, cfg)
+    with pytest.raises(ValueError, match="OS body"):
+        krd.fused_rd_2d_chain(x, rt, rsp.Cfar2dRuntime.make(
+            ref_range=2, guard_range=1, ref_doppler=1, guard_doppler=0,
+            threshold_scaler=3.0), TAPS, cfg, rsp.Cfar2dConfig(
+            max_ref_range=4, max_guard_range=1, max_ref_doppler=2,
+            max_guard_doppler=1, include_os=True))
+    h = torch.zeros(2, 4096, device=dev)
+    pcfg = _pc_cfg(4096)
+    with pytest.raises(ValueError, match="h must lie"):
+        kchain.pc_ca(_cpi((2, 4096), dev), rt, pcfg.fft, pcfg.cfar, h.cpu())
