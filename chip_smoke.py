@@ -7,8 +7,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    available (there is no CPU fallback);
 2. builds the CUDA kernels from ``rsp_chains_tpu_torch/csrc``, one ``nvcc`` a
    source, all in parallel;
-3. holds each of the eleven kernels against its plain PyTorch version at the
-   headline shape, one CPI batch of 64 channels x 256 pulses x 1024 samples:
+3. holds each of the thirteen kernels against its plain PyTorch version at
+   the headline shape, one CPI batch of 64 channels x 256 pulses x 1024 samples:
    Kernels A and B under a CA elaboration, Kernels C and D under the default
    ``ChainConfig()`` (GOSCA + CASH) with GOS registers, Kernel E on the beat
    words of the frames quantized as the JAX bench quantizes them (x 250,
@@ -32,27 +32,42 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    bit-true chains; then ``range_doppler_chain`` (CA at the full batch, GOSCA
    on an 8-channel slice), ``pulse_compression_chain``, ``rx_rd_tx_chain``
    and ``rd_2d_cfar_chain`` over their register sweeps, and the detection of
-   a ``chirp_with_targets`` CPI at its (Doppler, range) cell;
+   a ``chirp_with_targets`` CPI at its (Doppler, range) cell; then the
+   sharded chains (``rsp_chains_tpu_torch.parallel``) on meshes of virtual
+   shards of the card, with the kernel halo (``use_rdma_halo``):
+   ``range_sharded_mag_cfar`` on a 1 x 4 mesh and ``make_sharded_pipeline``
+   on 1 x 4 and 4 x 1 meshes against the unsharded ``fft_mag_cfar_chain``,
+   the halo exchange of the 1 x 4 spectrum blocks (Kernel K,
+   ``halo_exchange``) against ``exchange_halo``, ``make_sharded_rd_pipeline``
+   on a 2 x 2 mesh against ``range_doppler_chain`` (CA at the full batch,
+   GOSCA + CASH on an 8-channel slice), and the five legs of the JAX
+   package's ``__graft_entry__.dryrun_multichip`` (``parallel/dryrun.py``);
+   Kernels K and L (``mag_extend``) are held against their plain versions
+   on the 1 x 4 mesh's blocks (K exact, L within 1e-6 relative). With two
+   cards or more the sharded paths run once more on a mesh of distinct
+   cards; with one, a line says so;
 5. times each kernel and its plain version, and the chains, with CUDA events;
 6. profiles the full-size kernel path, the plain path, the shrunken-size
    kernel path, the default chain's GOS path, the bit-true GOSCA chain's
-   GOS path and the range-Doppler kernel and plain paths: device time per
-   call of each stage and of the busiest device kernels, and the device
-   memory a call allocates beyond its inputs.
+   GOS path, the range-Doppler kernel and plain paths and the range-sharded
+   tail: device time per call of each stage and of the busiest device
+   kernels, and the device memory a call allocates beyond its inputs.
 
 Bars: for the float kernels the bench's (``bench.py:404``), max|dthr| /
 max|thr| < 1e-4 and peak flips <= 1e-5 of the cells; for the wire kernel the
 bench's wire bar (``bench.py:655-679``), bins equal, the threshold field
 within 2 LSB and 0.05 LSB on average, peak flips <= 1e-5; for the integer
 kernels and chains equality; for the complex range-Doppler map
-max|dmap| / max|map| < 1e-4. Any failed check raises. The last line is the
+max|dmap| / max|map| < 1e-4; the sharded paths at the float bar against the
+unsharded chains. Any failed check raises. The last line is the
 JSON device record; the line before it lists the kernels, each with its
 launches on the main paths, its error, its time, its plain version's, and its
 bound: the larger of its bytes over 3.35 TB/s and the least operations the
 function needs over the H100's rate for their type (the FFT's 5 N log2 N a
 frame, two along range and one along the pulses of each range column for the
 range-Doppler kernels; for the rank selections, a sorted window that slides
-by one cell, two binary searches a window start). The compares of the
+by one cell, two binary searches a window start; the halo kernels by their
+bytes alone). The compares of the
 kernels' own counting selection are printed beside it, not used in the bound.
 """
 
@@ -89,6 +104,7 @@ SWEEP = [
 GOS_REGS = dict(HEADLINE, cfar_algorithm=1, index_lagg=16, index_lead=16)
 GOS_CHUNK = 8  # channels per call of a plain GOS version
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, each way
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 # H100 SXM, from the CUDA C++ Programming Guide's instruction throughput
 # (compute capability 9.0) at the clock the fp32 rate implies: compares
@@ -791,16 +807,198 @@ def main() -> int:
         lambda out, name, rt_s, rt2_s: compare(
             out, plain2d_far(x, rt_s, rt2_s), f"rd_2d_cfar_chain [{name}]"))
 
+    # ---- the sharded chains on a mesh of virtual shards of the card ----
+    from rsp_chains_tpu_torch import parallel as SP
+    from rsp_chains_tpu_torch.kernels import halo as khalo
+    from rsp_chains_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    def rdma(c):
+        return dataclasses.replace(c, cfar=dataclasses.replace(
+            c.cfar, use_rdma_halo=True))
+
+    scfg, rd_scfg = rdma(cfg), rdma(rd_cfg)
+    rd_gscfg = rdma(dataclasses.replace(rd_cfg, cfar=gcfg.cfar))
+    s_chain = rsp.fft_mag_cfar_chain(scfg)
+    rd_schain = rsp.range_doppler_chain(rd_scfg, taps=taps)
+    rd_gschain = rsp.range_doppler_chain(rd_gscfg, taps=taps)
+    assert s_chain.stage_names == ("fft_mag_cfar_fused",)
+    assert rd_gschain.stage_names == ("rd_map_fused", "mag_gos_cfar_fused")
+    ext_err = 0.0
+
+    def sharded_paths(devs, tag):
+        """Drive every sharded entry point over a mesh of ``devs`` (four
+        devices, repeats allowed), each path with the counters set to 0 just
+        before it, each point asserting the kernels it launched, and hold it
+        against the unsharded chain at the bench bar."""
+        m14, m41, m22 = (SP.make_mesh(c, r, devs)
+                         for c, r in ((1, 4), (4, 1), (2, 2)))
+        tail = SP.range_sharded_mag_cfar(scfg, m14)
+        pipe14 = SP.make_sharded_pipeline(scfg, m14)
+        pipe41 = SP.make_sharded_pipeline(scfg, m41)
+        rd22 = SP.make_sharded_rd_pipeline(rd_scfg, m22, taps)
+        rdg22 = SP.make_sharded_rd_pipeline(rd_gscfg, m22, taps)
+        on4 = {"mag_extend": 4, "mag_cfar": 4}
+
+        def points(pts, ref, frames):
+            """Each point with the unsharded chain's output on ``frames``,
+            computed before the path's counters are set to 0."""
+            return [(name, rt_s, k, ref(frames, rt_s)) for name, rt_s, k in pts]
+
+        def vs(what):
+            return lambda out, name, rt_s, want: compare(
+                out, want, f"{what}{tag} [{name}]")
+
+        got = {}
+        got["range tail"] = sweep(
+            f"range_sharded_mag_cfar 1x4{tag}", points(
+                [("headline CA", rt, on4),
+                 ("GO grouping", hl(cfar_mode=1, peak_grouping=1), on4),
+                 ("LOG2", hl(mag_mode=3, log_or_linear=0,
+                             threshold_scaler=2.0), on4),
+                 ("cfar_fft_size 768", hl(cfar_fft_size=768), on4)],
+                s_chain, x),
+            lambda rt_s, want: tail(spec, rt_s),
+            vs("range_sharded_mag_cfar 1x4"))
+
+        def halo_check(out, name, rt_s, row):
+            torch.cuda.synchronize()
+            for (gl, gr), (wl, wr) in zip(
+                    out, SP.exchange_halo([b.re for b in row], 128)):
+                if not (torch.equal(gl, wl) and torch.equal(gr, wr)):
+                    raise AssertionError(f"halo_exchange{tag}: not exact")
+            print(f"halo_exchange{tag} [{name}]: exact against exchange_halo")
+
+        row = SP.scatter(spec, m14, channels=False, ranges=True)[0]
+        got["halo exchange"] = sweep(
+            f"halo exchange of the 1x4 spectrum{tag}",
+            [("spectrum re", rt, {"halo_exchange": 4}, row)],
+            lambda rt_s, r: khalo.halo_exchange([b.re for b in r], 128),
+            halo_check)
+        got["pipeline 1x4"] = sweep(
+            f"make_sharded_pipeline 1x4{tag}", points(
+                [("headline CA", rt, on4), ("SO", hl(cfar_mode=2), on4)],
+                s_chain, x),
+            lambda rt_s, want: pipe14(x, rt_s),
+            vs("make_sharded_pipeline 1x4"))
+        got["pipeline 4x1"] = sweep(
+            f"make_sharded_pipeline 4x1{tag}", points(
+                [("headline CA", rt, {"chain_ca": 4}),
+                 ("fft_size 512", hl(fft_size=512), {"mag_cfar": 4})],
+                s_chain, x),
+            lambda rt_s, want: pipe41(x, rt_s),
+            vs("make_sharded_pipeline 4x1"))
+        got["rd 2x2"] = sweep(
+            f"make_sharded_rd_pipeline 2x2{tag}", points(
+                [("RD CA", rt, {"rd_map": 2, **on4})], rd_schain, x),
+            lambda rt_s, want: rd22(x, rt_s),
+            vs("make_sharded_rd_pipeline 2x2"))
+        gos4 = {"rd_map": 2, "mag_extend": 4, "mag_gos_cfar": 4}
+        got["rd gosca 2x2"] = sweep(
+            f"make_sharded_rd_pipeline 2x2, GOSCA + CASH, {GOS_CHUNK} "
+            f"channels{tag}", points(
+                [("RD GOS registers", grt, gos4),
+                 ("RD CASH", grt.merge_regs(cfar_mode=3, sub_window_size=8),
+                  gos4)], rd_gschain, xs),
+            lambda rt_s, want: rdg22(xs, rt_s),
+            vs("make_sharded_rd_pipeline GOSCA 2x2"))
+        launched.clear()
+        report = dryrun_multichip([devs[i % len(devs)] for i in range(8)])
+        got["dry run"] = dict(launched)
+        print(f"dry run, the five legs of dryrun_multichip{tag} (4 ch x 2 "
+              f"rng, CPIs 64 x 1024, w 32): {report}; launches "
+              f"{got['dry run']}")
+        return got
+
+    sharded = sharded_paths([dev] * 4, "")
+    # Kernels K and L against their plain versions at the 1 x 4 mesh's
+    # blocks: 16,384 frames of 256 cells, halo 128
+    m14 = SP.make_mesh(1, 4, [dev] * 4)
+    row = SP.scatter(spec, m14, channels=False, ranges=True)[0]
+    re_row = [b.re for b in row]
+    for (gl, gr), (wl, wr) in zip(khalo.halo_exchange(re_row, 128),
+                                  khalo.halo_exchange_reference(re_row, 128)):
+        if not (torch.equal(gl, wl) and torch.equal(gr, wr)):
+            raise AssertionError("halo_exchange vs halo_exchange_reference: "
+                                 "not exact")
+    print("halo_exchange vs halo_exchange_reference: exact")
+    for mode in (0, 1, 2, 3):
+        got_ext = khalo.mag_extend(row, 128, mode)
+        want_ext = khalo.mag_extend_reference(row, 128, mode)
+        torch.cuda.synchronize()
+        err = max((g - w).abs().max().item()
+                  for g, w in zip(got_ext, want_ext))
+        scale = max(w.abs().max().item() for w in want_ext)
+        print(f"mag_extend vs mag_extend_reference [mag_mode {mode}]: rel "
+              f"{err / scale:.3e} (max|d| {err:.3e})")
+        if not err <= 1e-6 * scale:
+            raise AssertionError("mag_extend: outside 1e-6 relative")
+        if mode == rt.mag_mode:
+            ext_err = err
+    if torch.cuda.device_count() >= 2:
+        cards = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+        cdevs = [cards[i % len(cards)] for i in range(4)]
+        tag = f" [{len(cards)} cards]"
+        sharded_paths(cdevs, tag)
+        # Kernels K and L with every neighbour on another card: exact and
+        # within 1e-6 as on one card; timed by the host clock over calls
+        # that end in a synchronisation of every card
+        crow = SP.scatter(spec, SP.make_mesh(1, 4, cdevs), channels=False,
+                          ranges=True)[0]
+        cre = [b.re for b in crow]
+        for (gl, gr), (wl, wr) in zip(khalo.halo_exchange(cre, 128),
+                                      khalo.halo_exchange_reference(cre,
+                                                                    128)):
+            if not (torch.equal(gl, wl) and torch.equal(gr, wr)):
+                raise AssertionError(f"halo_exchange{tag}: not exact")
+        for g, w in zip(khalo.mag_extend(crow, 128, rt.mag_mode),
+                        khalo.mag_extend_reference(crow, 128, rt.mag_mode)):
+            if not (g - w).abs().max().item() <= 1e-6 * w.abs().max().item():
+                raise AssertionError(f"mag_extend{tag}: outside 1e-6")
+
+        def sync_all():
+            for c in cards:
+                torch.cuda.synchronize(c)
+
+        def host_ms(fn, calls=30):
+            for _ in range(5):
+                fn()
+            sync_all()
+            t = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            sync_all()
+            return (time.perf_counter() - t) / calls * 1e3
+
+        # the peer bytes of the busiest shard: an interior shard's two
+        # neighbours' halo cells, 4 B (K) or 8 B (L) each
+        peer = samples // SHAPE[-1] * 128 * 2
+        for name, fn, per in (
+                ("halo_exchange", lambda: khalo.halo_exchange(cre, 128), 4),
+                ("mag_extend",
+                 lambda: khalo.mag_extend(crow, 128, rt.mag_mode), 8)):
+            print(f"{name}{tag}, 1x4 mesh over the cards, blocks 16384 x "
+                  f"256, halo 128: {host_ms(fn):.4f} ms a call (host clock, "
+                  f"every card synchronised); peer reads of the busiest "
+                  f"shard {peer * per / 1e6:.1f} MB -> "
+                  f"{peer * per / NVLINK_BYTES_PER_S * 1e3:.4f} ms at the "
+                  f"peer link's rate a direction; checked against the plain "
+                  f"version; card {card}")
+    else:
+        print("multi-card sharded phase: did not run: this host has one CUDA "
+              "card; it runs when torch.cuda.device_count() >= 2")
+
     if _build.BUILDS != 1:
         raise AssertionError(f"library built {_build.BUILDS} times, not once")
     paths = (ca_launches, gos_launches, int_launches, int_gos_launches,
              int_bound_launches, wire_launches, rd_launches, rd_gos_launches,
              det_launches, pc_launches, rd_wire_launches, rd2_launches,
-             rd2_far_launches)
+             rd2_far_launches, *sharded.values())
     launches = {k: sum(p.get(k, 0) for p in paths)
                 for k in ("chain_ca", "mag_cfar", "mag_gos_cfar", "chain_gos",
                           "wire_ca", "chain_int", "chain_int_gos", "rd_ca",
-                          "rd_map", "pc_ca", "rd_2d")}
+                          "rd_map", "pc_ca", "rd_2d", "halo_exchange",
+                          "mag_extend")}
     print(f"main-path launches, all paths: {launches}; library builds: "
           f"{_build.BUILDS}")
     if min(launches.values()) < 1:
@@ -872,6 +1070,46 @@ def main() -> int:
         "pulse_compression_chain": (time_ms(lambda: pc_chain(x2, rt_pc)),
                                     time_ms(lambda: pc_plain(x2, rt_pc)), 13),
     }
+    # the sharded tail at the 1 x 4 mesh, on placed blocks: Kernel L, then
+    # Kernel B on the given magnitude, and the whole step
+    tail14 = SP.range_sharded_mag_cfar(scfg, m14)
+    placed = [row]
+    exts = khalo.mag_extend(row, 128, rt.mag_mode)
+    halo_times = {
+        "halo_exchange": (time_ms(lambda: khalo.halo_exchange(re_row, 128)),
+                          time_ms(lambda: khalo.halo_exchange_reference(
+                              re_row, 128))),
+        "mag_extend": (time_ms(lambda: khalo.mag_extend(row, 128,
+                                                         rt.mag_mode)),
+                       time_ms(lambda: khalo.mag_extend_reference(
+                           row, 128, rt.mag_mode))),
+    }
+    tail_split = {
+        "mag_extend, 4 shards": halo_times["mag_extend"][0],
+        "mag_cfar on the given magnitude, 4 shards": time_ms(lambda: [
+            kcfar.mag_cfar(e, rt, scfg.cfar, active_lo=lo, active_hi=hi,
+                           mag_given=True)
+            for e, (lo, hi) in zip(exts, ((128, 512), (0, 512), (0, 512),
+                                          (0, 384)))]),
+        "range_sharded_mag_cfar 1x4, placed blocks": time_ms(
+            lambda: tail14(placed, rt)),
+        "range_sharded_mag_cfar 1x4, from the global spectrum": time_ms(
+            lambda: tail14(spec, rt)),
+        "make_sharded_pipeline 1x4": time_ms(
+            lambda: SP.make_sharded_pipeline(scfg, m14)(x, rt)),
+        "make_sharded_pipeline 4x1": time_ms(
+            lambda: SP.make_sharded_pipeline(scfg, SP.make_mesh(
+                4, 1, [dev] * 4))(x, rt)),
+        "make_sharded_rd_pipeline 2x2": time_ms(
+            lambda: SP.make_sharded_rd_pipeline(rd_scfg, SP.make_mesh(
+                2, 2, [dev] * 4), taps)(x, rt), calls=10),
+    }
+    for name, ms in tail_split.items():
+        print(f"sharded: {name}: {ms:.4f} ms at {'x'.join(map(str, SHAPE))}; "
+              f"card {card}")
+    for name, (ms, plain_ms) in halo_times.items():
+        print(f"{name}, 1x4 mesh of 16384 x 256 blocks, halo 128: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms; card {card}")
     assert x2.re.numel() == samples
     print(f"plain GOS times are of the {SHAPE[0]} channels in "
           f"{GOS_CHUNK}-channel chunks")
@@ -917,7 +1155,22 @@ def main() -> int:
         PC_SHAPE[-1].bit_length() - 1)
     work.update({"rd_ca": (13, rd_ops, 0, 0), "rd_map": (16, rd_ops, 0, 0),
                  "pc_ca": (13, pc_ops, 0, 0), "rd_2d": (13, rd_ops, 0, 0)})
+    # Kernels K and L move bytes only (a dozen flops a cell): each shard
+    # reads its neighbours' halo cells and writes both halos (K); reads its
+    # block and the halo cells and writes the extended row (L)
+    frames_l = samples // SHAPE[-1]
+    n_loc, halo_w, n_sh = SHAPE[-1] // 4, 128, 4
+    nb_reads = 2 * (n_sh - 1)
+    halo_bytes = {
+        "halo_exchange": frames_l * halo_w * 4 * (nb_reads + 2 * n_sh),
+        "mag_extend": frames_l * (n_sh * n_loc * 8 + nb_reads * halo_w * 8
+                                  + n_sh * (n_loc + 2 * halo_w) * 4),
+    }
     bounds = {}
+    for name, nbytes in halo_bytes.items():
+        bounds[name] = (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
+        print(f"bound {name}: {nbytes / 1e6:.1f} MB over the 4 shards -> "
+              f"{bounds[name][0]:.4f} ms")
     for name, (per, f32, i32, cmp) in work.items():
         byte_ms = per * samples / HBM_BYTES_PER_S * 1e3
         ops_ms = (f32 / FP32_OPS_PER_S + i32 / INT_OPS_PER_S
@@ -944,11 +1197,15 @@ def main() -> int:
     profile(lambda: rd_plain(x, rt), "range-Doppler plain path",
             rd_plain.stage_names)
     profile(lambda: run2d(x, rt, rt2d), "2-D detector kernel path", ())
+    profile(lambda: tail14(placed, rt), "range-sharded tail 1x4, placed", ())
+    profile(lambda: khalo.halo_exchange(re_row, 128), "halo_exchange 1x4", ())
 
     errs = {"chain_ca": err_a, "mag_cfar": err_b, "mag_gos_cfar": err_c,
             "chain_gos": err_d, "wire_ca": err_e, "chain_int": err_f,
             "chain_int_gos": err_g, "rd_ca": err_h, "rd_map": err_hm,
-            "pc_ca": err_i, "rd_2d": err_j}
+            "pc_ca": err_i, "rd_2d": err_j, "halo_exchange": 0.0,
+            "mag_extend": ext_err}
+    times.update({k: (*v, None) for k, v in halo_times.items()})
     sources = {
         "chain_ca": ("chain_ca.cu", "rsp_chains_tpu/kernels/chain_pallas.py:841"),
         "mag_cfar": ("mag_cfar.cu", "rsp_chains_tpu/kernels/cfar_pallas.py:489"),
@@ -965,9 +1222,14 @@ def main() -> int:
         "rd_map": ("rd_ca.cu", "rsp_chains_tpu/kernels/rd_pallas.py:565"),
         "pc_ca": ("chain_ca.cu", "rsp_chains_tpu/kernels/chain_pallas.py:863"),
         "rd_2d": ("rd_2d.cu", "rsp_chains_tpu/kernels/rd_pallas.py:442"),
+        "halo_exchange": ("halo.cu",
+                          "rsp_chains_tpu/kernels/pallas_halo.py:124"),
+        "mag_extend": ("halo.cu", "rsp_chains_tpu/kernels/pallas_halo.py:177"),
     }
     # no one PyTorch call computes FFT (or matched filter and Doppler
-    # transform) + magnitude + CFAR, so library_ms is null for every kernel
+    # transform) + magnitude + CFAR, the neighbours' halos with zeros at the
+    # frame ends, or the extended magnitude row, so library_ms is null for
+    # every kernel
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"rsp_chains_tpu_torch/csrc/{src}", "replaces": replaces,

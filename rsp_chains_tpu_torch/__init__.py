@@ -5,9 +5,12 @@ GOSCA and CASH CFAR (the default ``ChainConfig()`` is GOSCA + CASH) in float
 and in the bit-true integer pipeline, the served wire top
 ``rx_fft_mag_cfar_tx_chain``, and the 2-D family: pulse compression, the
 range-Doppler chain and its wire top, the 2-D map detector, beamforming and
-pulse integration. The kernels are hand-written CUDA for Hopper (``csrc/``),
-each with a plain PyTorch version that CPU tensors take. The package imports
-torch and numpy, never jax.
+pulse integration. ``rsp_chains_tpu_torch.parallel`` shards the chains over
+a ``(ch, rng)`` mesh of devices, with the range halo exchanged between
+neighbouring shards; as in the JAX package, this module does not import it.
+The kernels are hand-written CUDA for Hopper (``csrc/``), each with a plain
+PyTorch version that CPU tensors take. The package imports torch and numpy,
+never jax.
 """
 
 from .configs import (

@@ -182,8 +182,9 @@ class CfarConfig:
     """CFAR elaboration. ``use_pallas`` keeps its name from the JAX package:
     True routes the elaborations the kernels carry (CA, GOS and GOSCA with
     PARTIAL edges) through the hand-written kernels, False through the plain
-    PyTorch ops. ``use_rdma_halo`` belongs to the sharded
-    path, which is not ported yet."""
+    PyTorch ops. ``use_rdma_halo`` routes the range-sharded tail
+    (``parallel/sharded.py``) through the halo kernel ``mag_extend`` and the
+    CFAR kernels' given magnitude."""
 
     max_ref_window: int = 64
     max_guard_window: int = 8

@@ -12,12 +12,16 @@
 // and writes 5 bytes a cell. Tiling the range keeps shared memory at
 // 3 * (RSP_GOS_TILE + 2*RSP_PAD) floats (6 KB) whatever the frame length, so
 // every multiple of 256 runs, the halo-extended 1280 included.
+//
+// `kGiven`: the range-sharded tail's "magnitude given" input, as in
+// mag_cfar.cu: `re` holds the magnitude, `im` is not read.
 #include <cuda_runtime.h>
 
 #include "gos_cfar.cuh"
 
 #define RSP_GOS_SLAB (RSP_GOS_TILE + 2 * RSP_PAD)
 
+template <bool kGiven>
 __global__ void __launch_bounds__(RSP_THREADS)
 rsp_mag_gos_cfar_kernel(const float* __restrict__ re,
                         const float* __restrict__ im, float* __restrict__ thr,
@@ -32,8 +36,11 @@ rsp_mag_gos_cfar_kernel(const float* __restrict__ re,
   for (int j = threadIdx.x; j < RSP_GOS_SLAB; j += blockDim.x) {
     const int i = ts - RSP_PAD + j;
     const bool active = i >= r.active_lo && i < r.active_hi && i >= 0 && i < n;
-    row[j] = active ? rsp_magnitude(re[base + i], im[base + i], r.mag_mode)
-                    : 0.0f;
+    float m = 0.0f;
+    if (active)
+      m = kGiven ? re[base + i]
+                 : rsp_magnitude(re[base + i], im[base + i], r.mag_mode);
+    row[j] = m;
   }
   __syncthreads();
   rsp_gos_tail(row, st0, st1, ts, RSP_GOS_TILE, r, thr + base + ts,
@@ -41,14 +48,20 @@ rsp_mag_gos_cfar_kernel(const float* __restrict__ re,
 }
 
 // re, im, thr: float32 [frames, n]; peaks: uint8 [frames, n]; all contiguous
-// on the current device, n a multiple of RSP_GOS_TILE. Launches on `stream`
+// on the current device, n a multiple of RSP_GOS_TILE. With `mag_given`
+// nonzero, re holds the magnitude and im may be null. Launches on `stream`
 // and returns cudaGetLastError().
 extern "C" int rsp_mag_gos_cfar(const float* re, const float* im, float* thr,
                                 uint8_t* peaks, int frames,
-                                cudaStream_t stream, int n, RspGosRegs regs) {
+                                cudaStream_t stream, int n, RspGosRegs regs,
+                                int mag_given) {
   const long long blocks = (long long)frames * (n / RSP_GOS_TILE);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  rsp_mag_gos_cfar_kernel<<<(unsigned)blocks, RSP_THREADS, 0, stream>>>(
-      re, im, thr, peaks, n, regs);
+  if (mag_given)
+    rsp_mag_gos_cfar_kernel<true><<<(unsigned)blocks, RSP_THREADS, 0, stream>>>(
+        re, im, thr, peaks, n, regs);
+  else
+    rsp_mag_gos_cfar_kernel<false><<<(unsigned)blocks, RSP_THREADS, 0,
+                                     stream>>>(re, im, thr, peaks, n, regs);
   return (int)cudaGetLastError();
 }

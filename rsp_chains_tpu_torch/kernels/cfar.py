@@ -10,6 +10,14 @@
 * ``fused_mag_gos_dispatch``, the port of ``cfar_pallas.py:1747``: CA-like
   registers of a GOSCA elaboration take Kernel B, the rest Kernel C.
 
+All three take the JAX kernels' ``active_lo`` / ``active_hi`` (the valid
+cells in local coordinates, for the range-sharded tail) and ``mag_given``:
+the input is a real float32 tensor that already holds the magnitude (the
+tail computes it in Kernel L, ``kernels/halo.py``). ``mag_given`` stands in
+for the TPU kernels' ``MAG_PASSTHROUGH`` register code
+(``cfar_pallas.py:106``); in the port it is an argument of the wrapper and
+never a register value, so a user's ``mag_mode`` above 3 still gives LOG2.
+
 Each CUDA source says what bounds its kernel on the H100 and how its design
 answers. A wrapper launches its kernel for CUDA tensors and uses the plain
 version (``*_reference``) only for CPU tensors. Registers are host values
@@ -102,33 +110,49 @@ def check_window_bounds(cfg: CfarConfig) -> None:
                          f"kernels' {PAD}-cell margin")
 
 
-def ca_registers(rt: RuntimeConfig, cfg: CfarConfig, n: int) -> CaRegs:
+def active_range(rt: RuntimeConfig, n: int, active_lo: Optional[int],
+                 active_hi: Optional[int]) -> tuple[int, int]:
+    """The active cells ``[lo, hi)`` within ``[0, n]``: by default
+    ``[0, min(cfar_fft_size, n))``, as ``chain_pallas._chain_scalars``
+    (:817) clamps it."""
+    lo = 0 if active_lo is None else int(active_lo)
+    hi = int(rt.cfar_fft_size) if active_hi is None else int(active_hi)
+    return min(max(lo, 0), n), min(max(hi, 0), n)
+
+
+def ca_registers(rt: RuntimeConfig, cfg: CfarConfig, n: int,
+                 active_lo: Optional[int] = None,
+                 active_hi: Optional[int] = None) -> CaRegs:
     """The CA kernels' register struct, clamped on the host as
-    ``chain_pallas._chain_scalars`` (:817) clamps it: the active range is
-    ``[0, min(cfar_fft_size, n))``.
+    ``chain_pallas._chain_scalars`` (:817) clamps it, with the active range
+    of ``active_range``.
 
     ``mag_mode`` is clipped to 0..3 as the JAX package's ``ops.logmag`` clips
     it, so a code above 3 gives LOG2. The Pallas kernels' ``_magnitude`` passes
     such a code through as the raw real part instead; the port follows the
     plain op."""
     log2w, guard = window_registers(rt, cfg)
+    lo, hi = active_range(rt, n, active_lo, active_hi)
     return CaRegs(
         log2w=log2w, guard=guard, div_sum=int(rt.div_sum),
         cfar_mode=int(rt.cfar_mode), log_or_linear=int(rt.log_or_linear),
-        peak_grouping=int(rt.peak_grouping),
-        active_lo=0, active_hi=max(min(int(rt.cfar_fft_size), n), 0),
+        peak_grouping=int(rt.peak_grouping), active_lo=lo, active_hi=hi,
         mag_mode=min(max(int(rt.mag_mode), 0), 3),
         scaler=float(rt.threshold_scaler))
 
 
-def gos_registers(rt: RuntimeConfig, cfg: CfarConfig, n: int) -> GosRegs:
+def gos_registers(rt: RuntimeConfig, cfg: CfarConfig, n: int,
+                  active_lo: Optional[int] = None,
+                  active_hi: Optional[int] = None) -> GosRegs:
     """The GOSCA kernels' register struct, clamped on the host as
-    ``fused_mag_gos_cfar`` clamps its scalars, with the elaboration resolved
+    ``fused_mag_gos_cfar`` clamps its scalars (the active range of
+    ``active_range``), with the elaboration resolved
     as ``ops.cfar.cfar_op`` resolves it: the mode clipped to 0..3 and CASH
     degraded to CA where it is not elaborated, the algorithm 1 for a pure-GOS
     elaboration whatever the register holds, the ranks clamped to
     ``[0, max_ref_window)``."""
     log2w, guard = window_registers(rt, cfg)
+    lo, hi = active_range(rt, n, active_lo, active_hi)
     wmax = cfg.max_ref_window
 
     def clamp(v, lo, hi):
@@ -137,14 +161,13 @@ def gos_registers(rt: RuntimeConfig, cfg: CfarConfig, n: int) -> GosRegs:
     return GosRegs(
         log2w=log2w, guard=guard, div_sum=int(rt.div_sum),
         cfar_mode=effective_mode(rt, cfg), log_or_linear=int(rt.log_or_linear),
-        peak_grouping=int(rt.peak_grouping),
-        active_hi=max(min(int(rt.cfar_fft_size), n), 0),
+        peak_grouping=int(rt.peak_grouping), active_hi=hi,
         mag_mode=clamp(rt.mag_mode, 0, 3),
         algorithm=effective_algorithm(rt, cfg),
         rank_lagg=clamp(rt.index_lagg, 0, wmax - 1),
         rank_lead=clamp(rt.index_lead, 0, wmax - 1),
         sub_w=clamp(rt.sub_window_size, cfg.min_sub_window, wmax),
-        active_lo=0, scaler=float(rt.threshold_scaler))
+        active_lo=lo, scaler=float(rt.threshold_scaler))
 
 
 def takes_plain_path(x: C, name: str) -> bool:
@@ -199,40 +222,62 @@ def call_entry(name: str, device: torch.device, fn: Callable[..., int],
 def launch(name: str, x: C, fn: Callable[..., int], *args,
            dtype: torch.dtype = torch.float32) -> CfarOutput:
     """Allocate threshold (of ``dtype``, the input planes' dtype) and peaks
-    for the frames of ``x`` (CUDA), launch the kernel through its C entry
-    ``fn`` with the kernel arguments ``args`` on the current stream, and
-    count the launch under ``name``."""
-    check_cuda_operands(x.re, x.im, dtype=dtype)
+    for the frames of ``x`` (CUDA; ``x.im`` may be None where the kernel
+    reads one plane), launch the kernel through its C entry ``fn`` with the
+    kernel arguments ``args`` on the current stream, and count the launch
+    under ``name``."""
+    check_cuda_operands(*(t for t in x if t is not None), dtype=dtype)
     thr = torch.empty(x.shape, dtype=dtype, device=x.device)
     pk = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     frames = x.re.numel() // x.shape[-1]
     if frames:
         call_entry(name, x.device, fn,
-                   (x.re.data_ptr(), x.im.data_ptr(), thr.data_ptr(),
-                    pk.data_ptr(), frames), args)
+                   (x.re.data_ptr(), None if x.im is None else x.im.data_ptr(),
+                    thr.data_ptr(), pk.data_ptr(), frames), args)
     return CfarOutput(threshold=thr, peaks=pk.view(torch.bool))
 
 
-def mag_cfar_reference(spectrum: CLike, rt: RuntimeConfig,
-                       cfg: CfarConfig) -> CfarOutput:
+def _tail_input(spectrum, mag_given: bool) -> C:
+    """The spectrum as a pair, or with ``mag_given`` the magnitude (a real
+    tensor) as the pair ``C(mag, None)``."""
+    if not mag_given:
+        return as_pair(spectrum)
+    if not isinstance(spectrum, torch.Tensor) or spectrum.is_complex():
+        raise ValueError("with mag_given the input is the magnitude, a real "
+                         "tensor")
+    return C(spectrum, None)
+
+
+def mag_cfar_reference(spectrum: CLike, rt: RuntimeConfig, cfg: CfarConfig,
+                       *, active_lo: Optional[int] = None,
+                       active_hi: Optional[int] = None,
+                       mag_given: bool = False) -> CfarOutput:
     """The plain PyTorch version of ``mag_cfar`` and ``mag_gos_cfar``,
     composed from the ops."""
-    return cfar_op(logmag(spectrum, rt.mag_mode), rt, cfg)
+    mag = (_tail_input(spectrum, True).re.float() if mag_given
+           else logmag(spectrum, rt.mag_mode))
+    return cfar_op(mag, rt, cfg, active_lo=active_lo, active_hi=active_hi)
 
 
-def mag_cfar(spectrum: CLike, rt: RuntimeConfig, cfg: CfarConfig) -> CfarOutput:
+def mag_cfar(spectrum: CLike, rt: RuntimeConfig, cfg: CfarConfig, *,
+             active_lo: Optional[int] = None, active_hi: Optional[int] = None,
+             mag_given: bool = False) -> CfarOutput:
     """Magnitude + CA-family CFAR over the last axis of a spectrum
     ``[..., N]``, N a multiple of 128. Returns threshold float32 and peaks
     bool."""
-    sp = as_pair(spectrum)
+    sp = _tail_input(spectrum, mag_given)
     n = sp.shape[-1]
     if n % 128:
         raise ValueError(f"frame length {n} is not a multiple of 128")
     check_window_bounds(cfg)
     if takes_plain_path(sp, "mag_cfar"):
-        return mag_cfar_reference(sp, rt, cfg)
-    return launch("mag_cfar", sp, entry("rsp_mag_cfar", ctypes.c_int, CaRegs),
-                  n, ca_registers(rt, cfg, n))
+        return mag_cfar_reference(sp.re if mag_given else sp, rt, cfg,
+                                  active_lo=active_lo, active_hi=active_hi,
+                                  mag_given=mag_given)
+    return launch("mag_cfar", sp,
+                  entry("rsp_mag_cfar", ctypes.c_int, CaRegs, ctypes.c_int),
+                  n, ca_registers(rt, cfg, n, active_lo, active_hi),
+                  int(mag_given))
 
 
 # The plain ops carry every CFAR variant, so Kernel C's plain version is
@@ -240,29 +285,37 @@ def mag_cfar(spectrum: CLike, rt: RuntimeConfig, cfg: CfarConfig) -> CfarOutput:
 mag_gos_cfar_reference = mag_cfar_reference
 
 
-def mag_gos_cfar(spectrum: CLike, rt: RuntimeConfig,
-                 cfg: CfarConfig) -> CfarOutput:
+def mag_gos_cfar(spectrum: CLike, rt: RuntimeConfig, cfg: CfarConfig, *,
+                 active_lo: Optional[int] = None,
+                 active_hi: Optional[int] = None,
+                 mag_given: bool = False) -> CfarOutput:
     """Magnitude + GOS / GOSCA / CASH CFAR (and the CA statistics a GOSCA
     elaboration selects at runtime) over the last axis of a spectrum
     ``[..., N]``, N a multiple of 256. Returns threshold float32 and peaks
     bool."""
-    sp = as_pair(spectrum)
+    sp = _tail_input(spectrum, mag_given)
     n = sp.shape[-1]
     if n % GOS_TILE:
         raise ValueError(f"frame length {n} is not a multiple of {GOS_TILE}")
     check_window_bounds(cfg)
     if takes_plain_path(sp, "mag_gos_cfar"):
-        return mag_gos_cfar_reference(sp, rt, cfg)
+        return mag_gos_cfar_reference(sp.re if mag_given else sp, rt, cfg,
+                                      active_lo=active_lo,
+                                      active_hi=active_hi,
+                                      mag_given=mag_given)
     return launch("mag_gos_cfar", sp,
-                  entry("rsp_mag_gos_cfar", ctypes.c_int, GosRegs),
-                  n, gos_registers(rt, cfg, n))
+                  entry("rsp_mag_gos_cfar", ctypes.c_int, GosRegs,
+                        ctypes.c_int),
+                  n, gos_registers(rt, cfg, n, active_lo, active_hi),
+                  int(mag_given))
 
 
 def fused_mag_gos_dispatch(spectrum: CLike, rt: RuntimeConfig,
-                           cfg: CfarConfig) -> CfarOutput:
+                           cfg: CfarConfig, **tail) -> CfarOutput:
     """The GOSCA tail stage: CA-like registers (``ca_like``) take
-    ``mag_cfar``, the rest ``mag_gos_cfar``. The choice is a host ``if`` on
-    registers, which are host values."""
+    ``mag_cfar``, the rest ``mag_gos_cfar``, each with the keyword arguments
+    ``tail`` (``active_lo``, ``active_hi``, ``mag_given``). The choice is a
+    host ``if`` on registers, which are host values."""
     if ca_like(rt, cfg):
-        return mag_cfar(spectrum, rt, cfg)
-    return mag_gos_cfar(spectrum, rt, cfg)
+        return mag_cfar(spectrum, rt, cfg, **tail)
+    return mag_gos_cfar(spectrum, rt, cfg, **tail)

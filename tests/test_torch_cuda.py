@@ -9,7 +9,13 @@ kernel's radix-2 fp32 FFT and direct window sums round differently from
 torch.fft and the dyadic box sums) and peak flips <= 1e-5 of the cells; for
 the complex range-Doppler map max|dmap| / max|map| < 1e-4; for the wire
 kernel the bench's wire bar on the decoded fields; for the integer kernels
-equality."""
+equality; for the halo exchange equality, and for the extended magnitude
+max|d| / max|mag| <= 1e-6.
+
+The sharded chains run on meshes of virtual shards of one card (a mesh that
+lists cuda:0 several times), and, where the host has two cards or more, on
+meshes of distinct cards, whose halo kernels read their neighbours' memory
+over the peer link."""
 
 import dataclasses
 
@@ -18,12 +24,16 @@ import pytest
 import torch
 
 import rsp_chains_tpu_torch as rsp
+from rsp_chains_tpu_torch import parallel as SP
 from rsp_chains_tpu_torch.kernels import _build
 from rsp_chains_tpu_torch.kernels import cfar as kcfar
 from rsp_chains_tpu_torch.kernels import chain as kchain
+from rsp_chains_tpu_torch.kernels import halo as khalo
 from rsp_chains_tpu_torch.kernels import int_chain as kint
 from rsp_chains_tpu_torch.kernels import rd as krd
 from rsp_chains_tpu_torch.ops.fft import fft_op
+from rsp_chains_tpu_torch.ops.logmag import logmag
+from rsp_chains_tpu_torch.ops.matched_filter import overlap_save_fir
 
 pytestmark = pytest.mark.cuda
 
@@ -816,3 +826,331 @@ def test_rd_wrappers_refuse_bad_operands(dev):
     pcfg = _pc_cfg(4096)
     with pytest.raises(ValueError, match="h must lie"):
         kchain.pc_ca(_cpi((2, 4096), dev), rt, pcfg.fft, pcfg.cfar, h.cpu())
+
+
+# ---- the sharded chains: Kernels K (halo_exchange) and L (mag_extend), and
+# B / C with an active range and a given magnitude ----
+
+def _vmesh(dev, ch, rng):
+    """A mesh of ch x rng virtual shards of one card."""
+    return SP.make_mesh(ch, rng, [dev] * (ch * rng))
+
+
+def _blocks(shards, shape, dev, seed=0, pair=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def one():
+        return torch.randn(shape, device=dev, generator=g) * 3
+
+    return [rsp.C(one(), one()) if pair else one() for _ in range(shards)]
+
+
+@pytest.mark.parametrize("shards, shape, halo", [
+    (4, (5, 7, 256), 128), (8, (3, 128), 128), (2, (9, 512), 37),
+    (1, (4, 256), 64), (3, (6, 200), 200), (4, (0, 256), 16)])
+def test_halo_exchange_matches_reference(dev, shards, shape, halo):
+    blocks = _blocks(shards, shape, dev)
+    before = dict(_build.LAUNCHES)
+    got = khalo.halo_exchange(blocks, halo)
+    assert _took(before) == ({"halo_exchange": shards} if shape[0] else {})
+    torch.cuda.synchronize()
+    for (gl, gr), (wl, wr) in zip(got,
+                                  khalo.halo_exchange_reference(blocks, halo)):
+        assert gl.device == wl.device and torch.equal(gl, wl)
+        assert torch.equal(gr, wr)
+
+
+@pytest.mark.parametrize("mag_mode", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("shards, shape, halo", [
+    (4, (16, 256), 128), (2, (3, 5, 1024), 128), (1, (8, 384), 128),
+    (5, (7, 128), 100), (4, (4, 256), 0)])
+def test_mag_extend_matches_reference(dev, mag_mode, shards, shape, halo):
+    blocks = _blocks(shards, shape, dev, seed=mag_mode, pair=True)
+    before = dict(_build.LAUNCHES)
+    got = khalo.mag_extend(blocks, halo, mag_mode)
+    assert _took(before) == {"mag_extend": shards}
+    want = khalo.mag_extend_reference(blocks, halo, mag_mode)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == shape[:-1] + (shape[-1] + 2 * halo,)
+        assert (g - w).abs().max().item() <= 1e-6 * w.abs().max().item()
+
+
+@pytest.mark.parametrize("lo, hi", [(128, 384), (0, 512), (0, 250),
+                                    (100, 180)])
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("regs", REGS[:5])
+def test_mag_cfar_with_an_active_range_matches_reference(dev, lo, hi, given,
+                                                         regs):
+    cfg = _cfg(512)
+    rt = rsp.RuntimeConfig.make(**{"fft_size": 512, **regs})
+    spec = fft_op(_iq((11, 512), dev, seed=lo), None, cfg.fft)
+    x = logmag(spec, rt.mag_mode) if given else spec
+    before = dict(_build.LAUNCHES)
+    got = kcfar.mag_cfar(x, rt, cfg.cfar, active_lo=lo, active_hi=hi,
+                         mag_given=given)
+    assert _took(before) == {"mag_cfar": 1}
+    _assert_close(got, kcfar.mag_cfar_reference(
+        x, rt, cfg.cfar, active_lo=lo, active_hi=hi, mag_given=given))
+    assert not got.peaks[..., :lo].any() and not got.peaks[..., hi:].any()
+
+
+@pytest.mark.parametrize("lo, hi", [(128, 384), (0, 768), (0, 500)])
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("regs, raw", GOS_REGS[:4] + GOS_REGS[7:10])
+def test_mag_gos_cfar_with_an_active_range_matches_reference(dev, lo, hi,
+                                                             given, regs, raw):
+    cfg = _gos_cfg(1024)     # 768-cell rows: a halo-extended shard's
+    rt = _gos_rt(1024, regs, raw)
+    spec = rsp.C(*_blocks(2, (5, 768), dev, seed=hi))
+    x = logmag(spec, rt.mag_mode) if given else spec
+    before = dict(_build.LAUNCHES)
+    got = kcfar.mag_gos_cfar(x, rt, cfg.cfar, active_lo=lo, active_hi=hi,
+                             mag_given=given)
+    assert _took(before) == {"mag_gos_cfar": 1}
+    _assert_close(got, kcfar.mag_gos_cfar_reference(
+        x, rt, cfg.cfar, active_lo=lo, active_hi=hi, mag_given=given))
+
+
+def _sharded_cfg(variant=rsp.CfarVariant.CA, include_cash=False, rdma=True,
+                 n=1024):
+    return rsp.ChainConfig(
+        fft=rsp.FftConfig(max_size=n),
+        cfar=rsp.CfarConfig(max_ref_window=64, max_fft_size=n,
+                            variant=variant, include_cash=include_cash,
+                            use_rdma_halo=rdma))
+
+
+HL = dict(fft_size=1024, ref_window_size=32, guard_window_size=4,
+          threshold_scaler=3.5, div_sum=5)
+
+
+@pytest.mark.parametrize("variant, cash, rdma, regs, kernels", [
+    (rsp.CfarVariant.CA, False, True, dict(),
+     {"mag_extend": 4, "mag_cfar": 4}),
+    (rsp.CfarVariant.CA, False, False, dict(cfar_mode=1), {"mag_cfar": 4}),
+    (rsp.CfarVariant.GOSCA, True, True, GOS,
+     {"mag_extend": 4, "mag_gos_cfar": 4}),
+    (rsp.CfarVariant.GOSCA, True, True, dict(cfar_mode=3, sub_window_size=8),
+     {"mag_extend": 4, "mag_gos_cfar": 4}),
+    (rsp.CfarVariant.GOSCA, True, True, dict(),
+     {"mag_extend": 4, "mag_cfar": 4}),
+    (rsp.CfarVariant.GOSCA, True, False, GOS, {"mag_gos_cfar": 4}),
+])
+def test_range_sharded_mag_cfar_launches_its_kernels(dev, variant, cash, rdma,
+                                                     regs, kernels):
+    cfg = _sharded_cfg(variant, cash, rdma)
+    rt = rsp.RuntimeConfig.make(**{**HL, **regs})
+    spec = fft_op(_iq((6, 1024), dev, seed=3), None, cfg.fft)
+    before = dict(_build.LAUNCHES)
+    got = SP.range_sharded_mag_cfar(cfg, _vmesh(dev, 1, 4))(spec, rt)
+    assert _took(before) == kernels
+    _assert_close(got, kcfar.mag_cfar_reference(spec, rt, cfg.cfar))
+
+
+@pytest.mark.parametrize("ch, rng, variant, cash, regs, kernels", [
+    (1, 4, rsp.CfarVariant.CA, False, dict(),
+     {"mag_extend": 4, "mag_cfar": 4}),
+    (2, 2, rsp.CfarVariant.CA, False, dict(peak_grouping=1),
+     {"mag_extend": 4, "mag_cfar": 4}),
+    (4, 1, rsp.CfarVariant.CA, False, dict(), {"chain_ca": 4}),
+    (4, 1, rsp.CfarVariant.GOSCA, True, GOS, {"chain_gos": 4}),
+    (4, 1, rsp.CfarVariant.CA, False, dict(fft_size=512), {"mag_cfar": 4}),
+    (2, 4, rsp.CfarVariant.GOSCA, True, GOS,
+     {"mag_extend": 8, "mag_gos_cfar": 8}),
+])
+def test_make_sharded_pipeline_launches_its_kernels(dev, ch, rng, variant,
+                                                    cash, regs, kernels):
+    cfg = _sharded_cfg(variant, cash)
+    rt = rsp.RuntimeConfig.make(**{**HL, **regs})
+    x = _iq((8, 1024), dev, seed=4)
+    before = dict(_build.LAUNCHES)
+    got = SP.make_sharded_pipeline(cfg, _vmesh(dev, ch, rng))(x, rt)
+    assert _took(before) == kernels
+    _assert_close(got, rsp.fft_mag_cfar_chain(_plain(cfg))(x, rt))
+
+
+@pytest.mark.parametrize("variant, cash, use_pallas, regs, kernels", [
+    (rsp.CfarVariant.CA, False, True, dict(),
+     {"rd_map": 2, "mag_extend": 4, "mag_cfar": 4}),
+    (rsp.CfarVariant.GOSCA, True, True, GOS,
+     {"rd_map": 2, "mag_extend": 4, "mag_gos_cfar": 4}),
+    (rsp.CfarVariant.GOSCA, True, False, GOS, {}),
+])
+def test_make_sharded_rd_pipeline_launches_its_kernels(dev, variant, cash,
+                                                       use_pallas, regs,
+                                                       kernels):
+    cfg = _rd_cfg(64, 1024, variant=variant, include_cash=cash)
+    cfg = dataclasses.replace(cfg, cfar=dataclasses.replace(
+        cfg.cfar, use_pallas=use_pallas, use_rdma_halo=True))
+    rt = rsp.RuntimeConfig.make(**{**HL, **regs})
+    x = _cpi((4, 64, 1024), dev, seed=9)
+    before = dict(_build.LAUNCHES)
+    got = SP.make_sharded_rd_pipeline(cfg, _vmesh(dev, 2, 2), TAPS)(x, rt)
+    assert _took(before) == kernels
+    _assert_close(got, rsp.range_doppler_chain(_plain(cfg), taps=TAPS)(x, rt))
+
+
+def test_the_plain_sharded_entry_points_on_a_virtual_mesh(dev):
+    """range_sharded_fir, channel_sharded and cfar_2d_halo_shard on CUDA
+    blocks: the plain ops where the JAX package runs XLA, and the chain's
+    kernel per channel shard."""
+    mesh = _vmesh(dev, 2, 4)
+    x = _iq((2, 2048), dev, seed=11)
+    taps = np.exp(0.3j * np.arange(33)).astype(np.complex64)
+    before = dict(_build.LAUNCHES)
+    y = SP.range_sharded_fir(taps, mesh)(x)
+    assert _took(before) == {}
+    want = overlap_save_fir(x, taps)
+    torch.cuda.synchronize()
+    err = max((y.re - want.re).abs().max().item(),
+              (y.im - want.im).abs().max().item())
+    assert err <= 1e-5 * want.re.abs().max().item()
+
+    chain = rsp.fft_mag_cfar_chain(_cfg(1024))
+    frames = _iq((4, 1024), dev, seed=12)
+    rt = rsp.RuntimeConfig.make(**HL)
+    before = dict(_build.LAUNCHES)
+    got = SP.channel_sharded(chain, _vmesh(dev, 4, 1))(frames, rt)
+    assert _took(before) == {"chain_ca": 4}
+    _assert_close(got, chain(frames, rt))
+
+    cfg2d = rsp.Cfar2dConfig(max_ref_range=16, max_guard_range=4,
+                             max_ref_doppler=8, max_guard_doppler=2)
+    rt2 = rsp.Cfar2dRuntime.make(ref_range=8, guard_range=2, ref_doppler=4,
+                                 guard_doppler=1, threshold_scaler=3.0)
+    mag = torch.rand(2, 16, 1024, device=dev) + 0.1
+    before = dict(_build.LAUNCHES)
+    out = SP.gather([SP.cfar_2d_halo_shard(row, rt2, cfg2d) for row in
+                     SP.scatter(mag, mesh, channels=True, ranges=True)])
+    assert _took(before) == {}
+    _assert_close(out, rsp.cfar_2d_op(mag, rt2, cfg2d))
+
+
+def test_dryrun_multichip_on_a_virtual_mesh(dev):
+    from rsp_chains_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    before = dict(_build.LAUNCHES)
+    report = dryrun_multichip([dev] * 8)
+    took = _took(before)
+    assert took["rd_map"] == 4 and took["mag_extend"] == 2, took
+    assert all(rel < 1e-3 for rel, _ in report.values()), report
+
+
+SWEEP13 = [dict(), dict(fft_size=256), dict(fft_size=64), dict(mag_mode=1),
+           dict(mag_mode=3, log_or_linear=0, threshold_scaler=2.0),
+           dict(cfar_mode=1), dict(cfar_mode=2),
+           dict(cfar_mode=3, sub_window_size=8),
+           dict(cfar_algorithm=1, index_lagg=20, index_lead=20),
+           dict(ref_window_size=16, guard_window_size=2, div_sum=4),
+           dict(ref_window_size=64, guard_window_size=8, div_sum=6),
+           dict(peak_grouping=1), dict(threshold_scaler=10.0)]
+
+
+def test_sharded_tail_register_writes_build_once(dev):
+    """The 13-register sweep of tests/test_no_recompile.py on the sharded
+    tail, kernel halo and given magnitude included: one build."""
+    cfg = _sharded_cfg(rsp.CfarVariant.GOSCA, True)
+    pipe = SP.make_sharded_pipeline(cfg, _vmesh(dev, 2, 2))
+    x = _iq((4, 1024), dev, seed=13)
+    before = dict(_build.LAUNCHES)
+    for regs in SWEEP13:
+        rt = rsp.RuntimeConfig.make(**{"fft_size": 1024,
+                                       "ref_window_size": 32,
+                                       "guard_window_size": 4, **regs})
+        _assert_close(pipe(x, rt), rsp.fft_mag_cfar_chain(_plain(cfg))(x, rt))
+    took = _took(before)
+    assert took["mag_extend"] == 4 * len(SWEEP13)
+    assert (took.get("mag_cfar", 0) + took.get("mag_gos_cfar", 0)
+            == 4 * len(SWEEP13))
+    assert _build.BUILDS == 1
+
+
+def test_halo_wrappers_refuse_bad_operands(dev):
+    a = torch.zeros(2, 256, device=dev)
+    with pytest.raises(ValueError):
+        khalo.halo_exchange([a, a.double()], 16)
+    with pytest.raises(ValueError):
+        khalo.halo_exchange([a, torch.zeros(256, 2, device=dev).t()], 16)
+    with pytest.raises(ValueError, match="all on the CPU or all on CUDA"):
+        khalo.halo_exchange([a, a.cpu()], 16)
+    with pytest.raises(ValueError, match="real tensor"):
+        kcfar.mag_cfar(rsp.C(a, a), rsp.RuntimeConfig.make(fft_size=256),
+                       _cfg(256).cfar, mag_given=True)
+
+
+# ---- several cards: the halo kernels read their neighbours' memory over
+# the peer link ----
+
+@pytest.fixture()
+def cards(dev):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards or more")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _spread(blocks, cards):
+    return [b.to(cards[i % len(cards)]) if isinstance(b, torch.Tensor)
+            else rsp.C(b.re.to(cards[i % len(cards)]),
+                       b.im.to(cards[i % len(cards)]))
+            for i, b in enumerate(blocks)]
+
+
+def test_halo_kernels_across_cards(cards):
+    blocks = _spread(_blocks(4, (64, 256), cards[0], seed=21), cards)
+    got = khalo.halo_exchange(blocks, 128)
+    want = khalo.halo_exchange_reference(blocks, 128)
+    pairs = _spread(_blocks(4, (64, 256), cards[0], seed=22, pair=True), cards)
+    ext = khalo.mag_extend(pairs, 128, 2)
+    ext_want = khalo.mag_extend_reference(pairs, 128, 2)
+    for d in cards:
+        torch.cuda.synchronize(d)
+    for (gl, gr), (wl, wr), g, w, b in zip(got, want, ext, ext_want, blocks):
+        assert gl.device == b.device == g.device
+        assert torch.equal(gl, wl) and torch.equal(gr, wr)
+        assert (g - w).abs().max().item() <= 1e-6 * w.abs().max().item()
+
+
+def test_sharded_pipelines_across_cards(cards):
+    devs = [cards[i % len(cards)] for i in range(4)]
+    cfg = _sharded_cfg()
+    rt = rsp.RuntimeConfig.make(**HL)
+    x = _iq((8, 1024), cards[0], seed=23)
+    want = rsp.fft_mag_cfar_chain(_plain(cfg))(x, rt)
+    for ch, rng in ((1, 4), (2, 2), (4, 1)):
+        got = SP.make_sharded_pipeline(cfg, SP.make_mesh(ch, rng, devs))(x, rt)
+        _assert_close(got, want)
+    rd = _rd_cfg(64, 1024)
+    rd = dataclasses.replace(rd, cfar=dataclasses.replace(rd.cfar,
+                                                          use_rdma_halo=True))
+    cpi = _cpi((2, 64, 1024), cards[0], seed=24)
+    _assert_close(SP.make_sharded_rd_pipeline(rd, SP.make_mesh(2, 2, devs),
+                                              TAPS)(cpi, rt),
+                  rsp.range_doppler_chain(_plain(rd), taps=TAPS)(cpi, rt))
+
+
+@pytest.mark.parametrize("reader", [0, 1])
+def test_a_neighbours_block_is_not_reused_before_the_read(cards, reader):
+    """The reader's stream is held back; the neighbour's block is freed and
+    its memory handed to new work on the neighbour's stream at once. The
+    halo must still hold the old cells: the neighbour's stream waits for the
+    read."""
+    owner = 1 - reader
+    devs = [cards[0], cards[1]]
+    blocks = [torch.full((256, 512), float(i + 1), device=devs[i])
+              for i in range(2)]
+    torch.cuda.synchronize(devs[0])
+    torch.cuda.synchronize(devs[1])
+    with torch.cuda.device(devs[reader]):
+        torch.cuda._sleep(200_000_000)      # ~0.1 s on the reader's stream
+    out = khalo.halo_exchange(blocks, 128)
+    ptr = blocks[owner].data_ptr()
+    blocks[owner] = None                    # freed to the owner's allocator
+    with torch.cuda.device(devs[owner]):
+        reused = torch.full((256, 512), -7.0, device=devs[owner])
+    assert reused.data_ptr() == ptr         # the same memory, new work
+    torch.cuda.synchronize(devs[0])
+    torch.cuda.synchronize(devs[1])
+    halo = out[reader][1 if reader == 0 else 0]
+    assert torch.equal(halo, torch.full_like(halo, float(owner + 1)))
