@@ -47,6 +47,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    cards or more the sharded paths run once more on a mesh of distinct
    cards; with one, a line says so;
 5. times each kernel and its plain version, and the chains, with CUDA events;
+   times Kernels C and D at the windows 8, 32 and 64, each also with the
+   algorithm register at 0, where the CA sums take the rank selection's
+   place (the difference is the selection's own time), and prints both
+   kernels' registers and spills from the ``-Xptxas -v`` report;
 6. profiles the full-size kernel path, the plain path, the shrunken-size
    kernel path, the default chain's GOS path, the bit-true GOSCA chain's
    GOS path, the range-Doppler kernel and plain paths and the range-sharded
@@ -67,14 +71,15 @@ function needs over the H100's rate for their type (the FFT's 5 N log2 N a
 frame, two along range and one along the pulses of each range column for the
 range-Doppler kernels; for the rank selections, a sorted window that slides
 by one cell, two binary searches a window start; the halo kernels by their
-bytes alone). The compares of the
-kernels' own counting selection are printed beside it, not used in the bound.
+bytes alone). The compares of Kernel G's
+counting selection are printed beside it, not used in the bound.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -103,6 +108,8 @@ SWEEP = [
 # the JAX bench's GOS registers (bench.py:600-603) over HEADLINE
 GOS_REGS = dict(HEADLINE, cfar_algorithm=1, index_lagg=16, index_lead=16)
 GOS_CHUNK = 8  # channels per call of a plain GOS version
+# (window, guard) at which Kernels C and D and their selection are timed
+SEL_WINDOWS = [(8, 4), (32, 4), (64, 8)]
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, each way
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
@@ -329,6 +336,31 @@ def time_ms(fn, calls: int = 30, warm: int = 5) -> float:
         events.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def ptxas_report(log: str, kernels) -> dict:
+    """Registers and spill bytes (stores, loads) of each entry function of
+    the ``-Xptxas -v`` report ``log`` whose mangled name holds one of
+    ``kernels``, keyed by the mangled name."""
+    found, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1) if any(k in m.group(1) for k in kernels) \
+                else None
+            spill = (None, None)
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found[entry] = (int(m.group(1)), *spill)
+            entry = None
+    return found
 
 
 def chunked(fn, x, chunk: int = GOS_CHUNK):
@@ -1122,6 +1154,36 @@ def main() -> int:
               f"plain path {plain_ms:.4f} ms = "
               f"{samples / plain_ms / 1e3:.1f} Msamples/s; card {card}")
 
+    # ---- the rank selection of Kernels C and D on its own ----
+    # each kernel called directly at the GOS registers over the windows of
+    # SEL_WINDOWS, and at each window with the algorithm register at 0,
+    # where the CA sums take the selection's place: the difference is the
+    # selection's time. Timed in turns (1, 0, 0, 1), each the mean of its two
+    for w, g in SEL_WINDOWS:
+        rt_w = rsp.RuntimeConfig.make(**{
+            **GOS_REGS, "ref_window_size": w, "guard_window_size": g,
+            "div_sum": w.bit_length() - 1, "index_lagg": w // 2,
+            "index_lead": w // 2})
+        rt_0 = rt_w.merge_regs(cfar_algorithm=0)
+        for name, fn in (
+                ("chain_gos", lambda r: kchain.chain_gos(x, r, gcfg.fft,
+                                                         gcfg.cfar)),
+                ("mag_gos_cfar", lambda r: kcfar.mag_gos_cfar(spec, r,
+                                                              gcfg.cfar))):
+            t1, t0, t0b, t1b = (time_ms(lambda r=r: fn(r))
+                                for r in (rt_w, rt_0, rt_0, rt_w))
+            ms1, ms0 = (t1 + t1b) / 2, (t0 + t0b) / 2
+            print(f"{name} at w {w} g {g} ranks {w // 2}/{w // 2}, "
+                  f"{'x'.join(map(str, SHAPE))}: {ms1:.4f} ms "
+                  f"({t1:.4f}, {t1b:.4f}); algorithm 0 (CA sums) "
+                  f"{ms0:.4f} ms ({t0:.4f}, {t0b:.4f}); the selection "
+                  f"{ms1 - ms0:.4f} ms; card {card}")
+    for name, (regs, st, ld) in ptxas_report(
+            _build.build_log(), ("rsp_chain_gos_kernel",
+                                 "rsp_mag_gos_cfar_kernel")).items():
+        print(f"ptxas -v {name}: {regs} registers, {st} B spill stores, "
+              f"{ld} B spill loads")
+
     # ---- bounds: bytes over the memory rate, least work over the rates ----
     frames_n = samples // SHAPE[-1]
     fft_ops = frames_n * 5 * SHAPE[-1] * bw
@@ -1133,12 +1195,13 @@ def main() -> int:
     # a sorted window sliding one cell a start: a deletion and an insertion,
     # each a binary search of ceil(log2(w + 1)) compares; both ranks read off
     sel_least = frames_n * 2 * w.bit_length() * int((nv > 0).sum())
-    # rsp_select2 counts, for each candidate, the cells below and equal to
-    # it: up to 2 nv^2 compares a start, fewer where both ranks turn up early
+    # Kernel G's rsp_select2 counts, for each candidate, the cells below and
+    # equal to it: up to 2 nv^2 compares a start, fewer where both ranks turn
+    # up early (C and D slide a sorted window: O(w / 32) warp instructions)
     sel_code = frames_n * 2 * int((nv ** 2).sum())
     print(f"rank selection, {SHAPE[0]}x{SHAPE[1]} frames: least work "
           f"{sel_least:.4e} compares -> {sel_least / CMP_PER_S * 1e3:.4f} ms; "
-          f"the counting selection's at most {sel_code:.4e} -> "
+          f"Kernel G's counting selection at most {sel_code:.4e} -> "
           f"{sel_code / CMP_PER_S * 1e3:.4f} ms (not a bound)")
     # (bytes a sample, fp32 operations, int32 operations, compares)
     work = {"chain_ca": (13, fft_ops, 0, 0), "mag_cfar": (13, 0, 0, 0),

@@ -8,8 +8,11 @@
 // spectrum and the magnitude row never leave shared memory: one read of the
 // IQ pair, one write of threshold and peaks.
 //
-// Bound on the H100: the rank selection of gos_cfar.cuh, as for Kernel C; the
-// FFT costs what it costs in Kernel A. Shared memory: the frame (2 N floats),
+// Bound on the H100: the FFT front, as in Kernel A, then the warp-resident
+// rank selection of gos_cfar.cuh: each of the block's 8 warps slides a sorted
+// window in registers over an eighth of the frame's window starts (133 at
+// N = 1024, w = 32), so the selection adds no shared memory and no divergent
+// loop to the front. Shared memory: the frame (2 N floats),
 // the magnitude row and two statistic rows (3 * (N + 2*RSP_PAD) floats),
 // 23,552 bytes at N = 1024.
 #include <cuda_runtime.h>

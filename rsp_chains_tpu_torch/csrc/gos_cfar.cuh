@@ -24,18 +24,35 @@
 // at i+g+1, so each statistic is computed once per window START and read by
 // both sides; one pass of the selection finds both ranks.
 //
-// Bound on the H100: the selection. A rank is found by counting, for each
-// candidate cell, the cells below and equal to it: up to w^2 shared-memory
-// compares per window start (4096 at w = 64), against 13 bytes of device
-// traffic per cell. This is the simple, exact form; a sliding sorted window
-// would cut it to O(w) per start.
+// The rank selection (`rsp_gos_ranks`): each warp owns a contiguous run of
+// window starts and keeps the active cells of its current window sorted in
+// registers, one slot a lane (two at w = 64), +inf past the nv active ones.
+// A bitonic sort over the lanes builds the run's first window; each further
+// start replaces the outgoing cell by the incoming one with compares against
+// the two neighbouring slots (two shuffles, four at w = 64), and the lane
+// holding each rank stores it. The k-th slot of the sorted multiset is the
+// counting definition's k-th smallest, ties included, so the statistic is
+// exact: no arithmetic touches a value. Where the whole window is active
+// (all but the frame's edges) a start costs about twenty warp instructions,
+// six of them on the shared memory and shuffle pipe; nothing diverges.
+//
+// Bound on the H100: the selection's pipe to shared memory and shuffles,
+// not device memory. A start of the whole-window loop issues two broadcast
+// loads (the outgoing and incoming cells), two shuffles (four at w = 64)
+// and two single-lane stores (the ranks), at one warp instruction a clock
+// an SM: about 6 SM clocks a start, some six times the time of the 13
+// bytes of device traffic a cell at w = 32. Loading four cells and storing four
+// ranks at a time would halve that pipe's share. Kernel D adds the FFT
+// front of Kernel A.
 #pragma once
 
 #include "ca_cfar.cuh"
 
-// Kernel C's range tile: a block takes RSP_GOS_TILE cells of one frame and a
-// RSP_PAD margin of magnitudes on each side.
+// Kernel C's range tile: a block takes RSP_GOS_TILE cells of one frame (or
+// 2 or 4 tiles, where the frame divides; see mag_gos_cfar.cu) and a RSP_PAD
+// margin of magnitudes on each side.
 #define RSP_GOS_TILE 256
+#define RSP_FULL_WARP 0xffffffffu
 
 // The register file in the order of the JAX package's `fused_mag_gos_cfar`
 // scalars (cfar_pallas.py:1663-1677) plus the scaler, after the host clamps
@@ -57,10 +74,10 @@ struct RspGosRegs {
   float scaler;
 };
 
-// The k0-th and k1-th smallest of x[0 .. nv), 0 <= k0, k1 < nv, for float
-// magnitudes (Kernels C, D) and int32 ones (Kernel G, chain_int_gos.cu).
-// Value v is the k-th smallest exactly when (cells below v) <= k < (cells
-// below v) + (cells equal to v).
+// The k0-th and k1-th smallest of x[0 .. nv), 0 <= k0, k1 < nv, by counting:
+// the int32 magnitudes of Kernel G (chain_int_gos.cu). Value v is the k-th
+// smallest exactly when (cells below v) <= k < (cells below v) + (cells
+// equal to v). Up to 2 nv^2 compares.
 template <typename T>
 static __device__ __forceinline__ void rsp_select2(const T* x, int nv, int k0,
                                                    int k1, T& v0, T& v1) {
@@ -82,6 +99,137 @@ static __device__ __forceinline__ void rsp_select2(const T* x, int nv, int k0,
       v1 = v;
       f1 = true;
     }
+  }
+}
+
+// What a lane keeps of its own `v` and its partner's `o` in a
+// compare-exchange: the lesser (`keep_min`) or the greater. The same strict
+// compare on both sides keeps the pair a permutation of its bits, ties,
+// -0 / +0 and NaN included.
+static __device__ __forceinline__ float rsp_keep(float v, float o,
+                                                 bool keep_min) {
+  return (keep_min ? o < v : v < o) ? o : v;
+}
+
+// One value a lane, sorted ascending over the warp by a bitonic network.
+static __device__ __forceinline__ float rsp_warp_sort(float v, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1)
+      v = rsp_keep(v, __shfl_xor_sync(RSP_FULL_WARP, v, j),
+                   ((lane & j) == 0) == ((lane & k) == 0));
+  }
+  return v;
+}
+
+// A bitonic sequence of one value a lane, sorted ascending over the warp.
+static __device__ __forceinline__ float rsp_warp_merge(float v, int lane) {
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1)
+    v = rsp_keep(v, __shfl_xor_sync(RSP_FULL_WARP, v, j), (lane & j) == 0);
+  return v;
+}
+
+// One slide of the sorted window held in slot `lane` of `a` (and, for
+// kWide, slot 32 + lane of `b`): vo leaves, vi enters, either of them +inf
+// where its cell is inactive (the padding past nv). From its neighbours'
+// slots a lane finds its own in the new window: after vo goes, the slots
+// below vo keep theirs and the rest take their upper neighbour's; after vi
+// comes, the slots below vi keep theirs, the first of the rest takes vi and
+// the others their lower neighbour's. Compares only, no votes: equal values
+// may trade slots, the multiset of values is exact.
+template <bool kWide>
+static __device__ __forceinline__ void rsp_slide(float& a, float& b,
+                                                 float vo, float vi,
+                                                 int lane) {
+  const float inf = CUDART_INF_F;
+  const int up = (lane - 1) & 31, dn = (lane + 1) & 31;
+  const float a_dn = __shfl_sync(RSP_FULL_WARP, a, dn);
+  const float a_up = __shfl_sync(RSP_FULL_WARP, a, up);
+  float a_next = lane == 31 ? inf : a_dn;
+  if (kWide) {
+    // across the halves: a's slot 31 is followed by b's slot 0, which the
+    // wrapped shuffles deliver to lane 31 (b_dn) and lane 0 (a_up)
+    const float b_dn = __shfl_sync(RSP_FULL_WARP, b, dn);
+    const float b_up = __shfl_sync(RSP_FULL_WARP, b, up);
+    a_next = lane == 31 ? b_dn : a_dn;
+    const float next = lane == 31 ? inf : b_dn;
+    const float prev = lane == 0 ? a_up : b_up;
+    const float cur = b < vo ? b : next, cur_prev = prev < vo ? prev : b;
+    b = cur < vi ? cur : (cur_prev < vi ? vi : cur_prev);
+  }
+  const float cur = a < vo ? a : a_next, cur_prev = a_up < vo ? a_up : a;
+  a = cur < vi ? cur : (lane > 0 && !(cur_prev < vi) ? cur_prev : vi);
+}
+
+// st0[s] / st1[s] for one warp's window starts s_a <= s < s_b: the
+// min(k, nv-1)-th smallest (k = k0 / k1) of the nv active cells of
+// row[s .. s + w), 0 where nv = 0; cell c of the row is active when
+// alo <= c < ahi. The warp keeps the window sorted in slot `lane` of `a`
+// and, for kWide (w = 64), slot 32 + lane of `b`; +inf past nv; the lane
+// holding a rank stores it. Every branch is uniform over the warp.
+template <bool kWide>
+static __device__ __forceinline__ void rsp_gos_ranks(
+    const float* __restrict__ row, float* st0, float* st1, int s_a, int s_b,
+    int w, int alo, int ahi, int k0, int k1) {
+  const int lane = threadIdx.x & 31;
+  const float inf = CUDART_INF_F;
+  // cell c is active when (unsigned)(c - alo) < span
+  const unsigned span = (unsigned)max(ahi - alo, 0);
+  // the first window, row[s_a .. s_a + w), by a bitonic sort
+  int c = s_a + lane;
+  bool act = lane < w && (unsigned)(c - alo) < span;
+  float a = rsp_warp_sort(act ? row[c] : inf, lane);
+  int nv = __popc(__ballot_sync(RSP_FULL_WARP, act));
+  float b = inf;
+  if (kWide) {
+    c += 32;
+    act = (unsigned)(c - alo) < span;
+    nv += __popc(__ballot_sync(RSP_FULL_WARP, act));
+    b = rsp_warp_sort(act ? row[c] : inf, lane);
+    // a ascending then b reversed is bitonic: the half-cleaner leaves the
+    // lesser half in a, then each half is merged
+    const float t = __shfl_sync(RSP_FULL_WARP, b, 31 - lane);
+    const bool swap = t < a;
+    b = swap ? a : t;
+    a = swap ? t : a;
+    a = rsp_warp_merge(a, lane);
+    b = rsp_warp_merge(b, lane);
+  }
+
+  auto store = [&](int s) {
+    const int j0 = max(min(k0, nv - 1), 0), j1 = max(min(k1, nv - 1), 0);
+    const float x0 = kWide && j0 >= 32 ? b : a;
+    const float x1 = kWide && j1 >= 32 ? b : a;
+    if (lane == (j0 & 31)) st0[s] = nv > 0 ? x0 : 0.0f;
+    if (lane == (j1 & 31)) st1[s] = nv > 0 ? x1 : 0.0f;
+  };
+  // the starts s whose slide keeps the whole window active (cells s - 1
+  // and s - 1 + w both active, nv == w throughout): no range tests, and the
+  // ranks stay in the same slots
+  const int f_lo = max(alo + 1, s_a + 1), f_hi = min(ahi - w + 1, s_b);
+  const int f0 = min(k0, w - 1), f1 = min(k1, w - 1);
+  store(s_a);
+  for (int s = s_a + 1; s < s_b; ++s) {
+    if (s == f_lo && f_lo < f_hi) {
+      const bool p0 = lane == (f0 & 31), p1 = lane == (f1 & 31);
+      do {
+        rsp_slide<kWide>(a, b, row[s - 1], row[s - 1 + w], lane);
+        if (p0) st0[s] = kWide && f0 >= 32 ? b : a;
+        if (p1) st1[s] = kWide && f1 >= 32 ? b : a;
+      } while (++s < f_hi);
+      if (s == s_b) break;
+    }
+    // slide by one cell: row[s - 1] leaves, row[s - 1 + w] enters
+    const int co = s - 1, ci = co + w;
+    const bool ao = (unsigned)(co - alo) < span;
+    const bool ai = (unsigned)(ci - alo) < span;
+    if (ao || ai) {
+      rsp_slide<kWide>(a, b, ao ? row[co] : inf, ai ? row[ci] : inf, lane);
+      nv += (int)ai - (int)ao;
+    }
+    store(s);
   }
 }
 
@@ -121,16 +269,19 @@ static __device__ __forceinline__ void rsp_gos_tail(
       st1[s] = m < CUDART_INF_F ? m / (float)max(sw, 1) : 0.0f;
     }
   } else if (r.algorithm == 1) {
-    // st0[s] / st1[s]: the lag / lead rank statistic of the window [s, s + w)
-    for (int s = s_lo + threadIdx.x; s < s_hi; s += blockDim.x) {
-      const int a = max(base + s, lo), b = min(base + s + w, hi);
-      const int nv = b - a;
-      float v0 = 0.0f, v1 = 0.0f;
-      if (nv > 0)
-        rsp_select2(row + (a - base), nv, min(r.rank_lagg, nv - 1),
-                    min(r.rank_lead, nv - 1), v0, v1);
-      st0[s] = v0;
-      st1[s] = v1;
+    // st0[s] / st1[s]: the lag / lead rank statistic of the window [s, s + w),
+    // each warp over a contiguous run of the starts
+    const int warps = blockDim.x >> 5;
+    const int per = (s_hi - s_lo + warps - 1) / warps;
+    const int s_a = s_lo + (int)(threadIdx.x >> 5) * per;
+    const int s_b = min(s_a + per, s_hi);
+    if (s_a < s_b) {
+      if (w > 32)
+        rsp_gos_ranks<true>(row, st0, st1, s_a, s_b, w, lo - base, hi - base,
+                            r.rank_lagg, r.rank_lead);
+      else
+        rsp_gos_ranks<false>(row, st0, st1, s_a, s_b, w, lo - base,
+                             hi - base, r.rank_lagg, r.rank_lead);
     }
   }
   __syncthreads();

@@ -34,12 +34,15 @@ def fft_scale(n: int, cfg: FftConfig) -> float:
 
 
 def check_keep_msb(cfg: FftConfig) -> None:
-    """LSB-keep stages (wraparound overflow) have no float analog."""
+    """LSB-keep stages (wraparound overflow) have no float analog; the error
+    names the bit-true route that reproduces them, as the JAX package's
+    ``ops.fft.fft_op`` does."""
     if cfg.keep_msb_or_lsb is not None and not all(cfg.keep_msb_or_lsb):
         raise ValueError(
             "keepMSBorLSB = LSB stages (wraparound overflow) have no float "
-            "analog; the bit-true integer pipeline that reproduces them is "
-            "not ported yet (ROADMAP queue 1 item 5)")
+            "analog; elaborate the bit-true integer pipeline instead "
+            "(FixedPointConfig(enabled=True, bit_true=True) routes the chain "
+            "through ops.bit_true.fft_int_op, which reproduces them exactly)")
 
 
 def transform_size(log2_fft_size: Optional[int], cfg: FftConfig) -> int:

@@ -183,13 +183,35 @@ GOS_REGS = [
 ]
 
 
+# the windows and ranks of the warp-resident selection of C and D
+WINDOWS = [2, 4, 8, 16, 32, 64]
+RANKS = ["0", "middle", "w - 1", ">= nv, raw"]
+
+
+def _window_regs(w, rank):
+    """(registers over GOS, registers written raw) at window w, guard
+    max(1, w // 8): the lag rank ``rank`` and the lead rank its mirror
+    w - 1 - rank, or with ``">= nv, raw"`` ranks past every window's count
+    written past make()'s rules; the mode cycles CA, GO, SO over the
+    windows."""
+    k = {"0": 0, "middle": w // 2, "w - 1": w - 1}.get(rank, 0)
+    regs = dict(ref_window_size=w, guard_window_size=max(1, w // 8),
+                index_lagg=k, index_lead=w - 1 - k,
+                cfar_mode=WINDOWS.index(w) % 3)
+    raw = dict(index_lagg=w + 3, index_lead=100) if rank == RANKS[-1] else {}
+    return regs, raw
+
+
+WINDOW_REGS = [_window_regs(w, rank) for w in WINDOWS for rank in RANKS]
+
+
 def _gos_rt(n, regs, raw):
     rt = rsp.RuntimeConfig.make(**{"fft_size": n, **GOS, **regs})
     return dataclasses.replace(rt, **raw)
 
 
 @pytest.mark.parametrize("n", [256, 512, 1024])
-@pytest.mark.parametrize("regs, raw", GOS_REGS)
+@pytest.mark.parametrize("regs, raw", GOS_REGS + WINDOW_REGS)
 def test_chain_gos_matches_reference(dev, n, regs, raw):
     cfg = _gos_cfg(n)
     x = _iq((13, n), dev, seed=2)
@@ -287,6 +309,71 @@ def test_gos_wrappers_refuse_bad_operands(dev):
     with pytest.raises(ValueError):
         kcfar.mag_gos_cfar(rsp.C(x.re[:, :640].contiguous(),
                                  x.im[:, :640].contiguous()), rt, cfg.cfar)
+
+
+# ---- the warp-resident rank selection of C and D over every window ----
+
+def _int_spec(shape, dev, seed):
+    """Integer-valued spectra: re, im in -3 .. 3 and a cell of 25 at bin 40.
+    Under SQR magnitude and a linear scaler of 3.5 every statistic, mean and
+    product is exact in float32, and every window is full of ties."""
+    rng = np.random.RandomState(seed)
+    re = rng.randint(-3, 4, shape).astype(np.float32)
+    im = rng.randint(-3, 4, shape).astype(np.float32)
+    re[..., 40] += 25.0
+    return rsp.C(torch.from_numpy(re).to(dev), torch.from_numpy(im).to(dev))
+
+
+def _assert_equal(got, want):
+    torch.cuda.synchronize()
+    assert torch.equal(got.threshold, want.threshold), (
+        (got.threshold - want.threshold).abs().max().item())
+    assert torch.equal(got.peaks, want.peaks)
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024, 1280])
+@pytest.mark.parametrize("regs, raw", WINDOW_REGS)
+def test_mag_gos_cfar_is_exact_on_integer_spectra(dev, n, regs, raw):
+    cfg = _gos_cfg(1024)
+    spec = _int_spec((3, 5, n), dev, seed=regs["ref_window_size"] + n)
+    rt = dataclasses.replace(_gos_rt(1024, dict(regs, mag_mode=1), raw),
+                             cfar_fft_size=n)
+    before = dict(_build.LAUNCHES)
+    got = kcfar.mag_gos_cfar(spec, rt, cfg.cfar)
+    assert _took(before) == {"mag_gos_cfar": 1}
+    _assert_equal(got, kcfar.mag_gos_cfar_reference(spec, rt, cfg.cfar))
+
+
+# windows cut by the active range: the CFAR FFT-size register, an explicit
+# range (a range-sharded tail's), one with the magnitude given, and a range
+# narrower than the widest window
+CUTS = ["cfar_fft_size", "active range", "active range, given",
+        "narrow range, given"]
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024, 1280])
+@pytest.mark.parametrize("cut", CUTS)
+@pytest.mark.parametrize("w", [2, 8, 32, 64])
+def test_mag_gos_cfar_is_exact_on_cut_windows(dev, n, cut, w):
+    cfg = _gos_cfg(1024)
+    spec = _int_spec((4, n), dev, seed=7 * w + n)
+    regs, raw = _window_regs(w, "middle")
+    rt = dataclasses.replace(_gos_rt(1024, dict(regs, mag_mode=1), raw),
+                             cfar_fft_size=n - 77)
+    kw = {}
+    if cut != "cfar_fft_size":
+        rt = dataclasses.replace(rt, cfar_fft_size=n)
+        kw = dict(active_lo=37, active_hi=n - 101)
+        if cut.startswith("narrow"):
+            kw = dict(active_lo=100, active_hi=120)
+    x = spec
+    if cut.endswith("given"):
+        x = logmag(spec, rt.mag_mode)
+        kw["mag_given"] = True
+    before = dict(_build.LAUNCHES)
+    got = kcfar.mag_gos_cfar(x, rt, cfg.cfar, **kw)
+    assert _took(before) == {"mag_gos_cfar": 1}
+    _assert_equal(got, kcfar.mag_gos_cfar_reference(x, rt, cfg.cfar, **kw))
 
 
 # ---- Kernel E (wire_ca): packed words in and out ----

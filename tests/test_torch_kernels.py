@@ -321,6 +321,79 @@ def test_chain_gos_reference_matches_pallas(regs):
     _assert_matches(got, want)
 
 
+def _int_spectra(shape, seed, amp=3):
+    """Integer-valued spectra: small integer re / im, so that the SQR
+    magnitude (at most 2 amp^2 in the noise) has many ties in every window
+    and every statistic, mean and product of the scaler is exact in
+    float32; a strong cell at 40 in every frame."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randint(-amp, amp + 1, shape)
+         + 1j * rng.randint(-amp, amp + 1, shape))
+    x[..., 40] += 25
+    return x.astype(np.complex64)
+
+
+# integer-valued, tie-heavy points: SQR magnitude, linear scaler 3.5
+INT_GOS_REGS = [
+    (dict(cfar_algorithm=1, index_lagg=3, index_lead=5), None),
+    (dict(cfar_algorithm=1, cfar_mode=1, index_lagg=0, index_lead=7), None),
+    (dict(cfar_algorithm=1, cfar_mode=2, ref_window_size=16,
+          guard_window_size=1, index_lagg=15, index_lead=8), None),
+    (dict(cfar_algorithm=1, ref_window_size=2, guard_window_size=1,
+          cfar_fft_size=200), dict(index_lagg=9, index_lead=15)),
+    (dict(cfar_algorithm=1, peak_grouping=1, cfar_fft_size=131), None),
+]
+
+
+@pytest.mark.parametrize("regs, raw", INT_GOS_REGS)
+def test_mag_gos_cfar_reference_matches_pallas_on_integer_spectra(regs, raw):
+    """Tie-heavy windows: the plain selection takes the k-th of the sorted
+    multiset, the Pallas kernel its odd-even merge ladder; both are exact
+    here, so the thresholds are equal."""
+    cfg_j, cfg_t = _gos_cfgs(256)
+    spec = _int_spectra((3, 256), seed=11)
+    rt_j = _rt(raw, mag_mode=1, threshold_scaler=3.5, **regs)
+    want = fused_mag_gos_cfar(jnp.asarray(spec), rt_j, cfg_j.cfar,
+                              interpret=True)
+    got = kcfar.mag_gos_cfar_reference(T.as_pair(spec),
+                                       runtime_from_reference(rt_j.peek()),
+                                       cfg_t.cfar)
+    _assert_matches(got, want)
+    np.testing.assert_array_equal(got.threshold.numpy(),
+                                  np.asarray(want.threshold))
+
+
+def _impulse_frames(shape, seed):
+    """Integer-valued IQ frames of four impulses at multiples of N/4: their
+    spectrum takes four magnitudes in turn, so every window is full of ties;
+    and a tone at bin 40 on top."""
+    rng = np.random.RandomState(seed)
+    n = shape[-1]
+    x = np.zeros(shape, np.complex128)
+    for k in range(4):
+        x[..., k * n // 4] = (rng.randint(1, 9, shape[:-1])
+                              + 1j * rng.randint(-8, 9, shape[:-1]))
+    x += 2.0 * np.exp(2j * np.pi * 40 * np.arange(n) / n)
+    return x.astype(np.complex64)
+
+
+@pytest.mark.parametrize("regs", [
+    dict(cfar_algorithm=1, index_lagg=2, index_lead=5),
+    dict(cfar_algorithm=1, cfar_mode=2, index_lagg=0, index_lead=7,
+         mag_mode=1),
+])
+def test_chain_gos_reference_matches_pallas_on_tied_spectra(regs):
+    cfg_j, cfg_t = _gos_cfgs(256)
+    x = _impulse_frames((3, 256), seed=12)
+    rt_j = _rt(**regs)
+    want = fused_chain_gos(R.as_pair(x), rt_j, cfg_j.fft, cfg_j.cfar,
+                           interpret=True)
+    got = kchain.chain_gos_reference(T.as_pair(x),
+                                     runtime_from_reference(rt_j.peek()),
+                                     cfg_t.fft, cfg_t.cfar)
+    _assert_matches(got, want)
+
+
 def test_fused_chain_gos_op_shrunken_size_matches_pallas():
     """A shrunken FFT-size register leaves Kernel D: the FFT op, then the
     GOSCA tail's path, in both packages."""

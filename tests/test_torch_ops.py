@@ -110,6 +110,23 @@ def test_fft_op_refuses_lsb_keep_like_jax():
         fft_op(xt, None, T.FftConfig(max_size=256, keep_msb_or_lsb=keep))
 
 
+def test_lsb_keep_error_names_the_bit_true_route():
+    """The refusal names the route that reproduces LSB-keep stages, the
+    bit-true pipeline, as the JAX message does, and no longer calls it
+    unported."""
+    keep = (True,) * 7 + (False,)
+    _, xt = _pairs(_frames((1, 256)))
+    route = "FixedPointConfig(enabled=True, bit_true=True)"
+    with pytest.raises(ValueError) as want:
+        fft_jax(R.as_pair(_frames((1, 256)).astype(np.complex64)), None,
+                R.FftConfig(max_size=256, keep_msb_or_lsb=keep))
+    with pytest.raises(ValueError) as got:
+        fft_op(xt, None, T.FftConfig(max_size=256, keep_msb_or_lsb=keep))
+    assert route in str(want.value) and route in str(got.value)
+    assert "fft_int_op" in str(got.value)
+    assert "not ported" not in str(got.value)
+
+
 def test_fft_op_complex_tensor_in_complex_tensor_out():
     x = _frames((2, 256)).astype(np.complex64)
     got = fft_op(torch.from_numpy(x), None, T.FftConfig(max_size=256))
