@@ -47,15 +47,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    cards or more the sharded paths run once more on a mesh of distinct
    cards; with one, a line says so;
 5. times each kernel and its plain version, and the chains, with CUDA events;
-   times Kernels C and D at the windows 8, 32 and 64, each also with the
+   times Kernels C, D and G at the windows 8, 32 and 64, each also with the
    algorithm register at 0, where the CA sums take the rank selection's
-   place (the difference is the selection's own time), and prints both
-   kernels' registers and spills from the ``-Xptxas -v`` report;
+   place (the difference is the selection's own time); times, as a
+   yardstick for Kernel H's range rows and used nowhere in the port,
+   ``torch.fft.fft`` + ``torch.fft.ifft`` over the same 16,384 rows of
+   1024; prints the registers, spills and stack frames of C, D, G and the
+   range-row kernels from the ``-Xptxas -v`` report;
 6. profiles the full-size kernel path, the plain path, the shrunken-size
    kernel path, the default chain's GOS path, the bit-true GOSCA chain's
-   GOS path, the range-Doppler kernel and plain paths and the range-sharded
-   tail: device time per call of each stage and of the busiest device
-   kernels, and the device memory a call allocates beyond its inputs.
+   GOS path, the range-Doppler kernel path (``rd_ca``), its map
+   (``rd_map``) and plain paths, the 2-D detector (``rd_2d``) and the
+   range-sharded tail: device time per call of each stage and of the
+   busiest device kernels (for the range-Doppler kernels, the Doppler and
+   range-row launches apart), and the device memory a call allocates beyond
+   its inputs.
 
 Bars: for the float kernels the bench's (``bench.py:404``), max|dthr| /
 max|thr| < 1e-4 and peak flips <= 1e-5 of the cells; for the wire kernel the
@@ -71,8 +77,7 @@ function needs over the H100's rate for their type (the FFT's 5 N log2 N a
 frame, two along range and one along the pulses of each range column for the
 range-Doppler kernels; for the rank selections, a sorted window that slides
 by one cell, two binary searches a window start; the halo kernels by their
-bytes alone). The compares of Kernel G's
-counting selection are printed beside it, not used in the bound.
+bytes alone).
 """
 
 from __future__ import annotations
@@ -339,26 +344,27 @@ def time_ms(fn, calls: int = 30, warm: int = 5) -> float:
 
 
 def ptxas_report(log: str, kernels) -> dict:
-    """Registers and spill bytes (stores, loads) of each entry function of
-    the ``-Xptxas -v`` report ``log`` whose mangled name holds one of
-    ``kernels``, keyed by the mangled name."""
+    """Registers, spill bytes (stores, loads) and stack frame bytes of each
+    entry function of the ``-Xptxas -v`` report ``log`` whose mangled name
+    holds one of ``kernels``, keyed by the mangled name."""
     found, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             entry = m.group(1) if any(k in m.group(1) for k in kernels) \
                 else None
-            spill = (None, None)
+            spill, stack = (None, None), None
             continue
         if entry is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            spill = (int(m.group(1)), int(m.group(2)))
+            stack = int(m.group(1))
+            spill = (int(m.group(2)), int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            found[entry] = (int(m.group(1)), *spill)
+            found[entry] = (int(m.group(1)), *spill, stack)
             entry = None
     return found
 
@@ -1154,7 +1160,7 @@ def main() -> int:
               f"plain path {plain_ms:.4f} ms = "
               f"{samples / plain_ms / 1e3:.1f} Msamples/s; card {card}")
 
-    # ---- the rank selection of Kernels C and D on its own ----
+    # ---- the rank selection of Kernels C, D and G on its own ----
     # each kernel called directly at the GOS registers over the windows of
     # SEL_WINDOWS, and at each window with the algorithm register at 0,
     # where the CA sums take the selection's place: the difference is the
@@ -1169,7 +1175,9 @@ def main() -> int:
                 ("chain_gos", lambda r: kchain.chain_gos(x, r, gcfg.fft,
                                                          gcfg.cfar)),
                 ("mag_gos_cfar", lambda r: kcfar.mag_gos_cfar(spec, r,
-                                                              gcfg.cfar))):
+                                                              gcfg.cfar)),
+                ("chain_int_gos", lambda r: kint.chain_int_gos(
+                    xi16, r, igcfg.fft, igcfg.cfar))):
             t1, t0, t0b, t1b = (time_ms(lambda r=r: fn(r))
                                 for r in (rt_w, rt_0, rt_0, rt_w))
             ms1, ms0 = (t1 + t1b) / 2, (t0 + t0b) / 2
@@ -1178,11 +1186,20 @@ def main() -> int:
                   f"({t1:.4f}, {t1b:.4f}); algorithm 0 (CA sums) "
                   f"{ms0:.4f} ms ({t0:.4f}, {t0b:.4f}); the selection "
                   f"{ms1 - ms0:.4f} ms; card {card}")
-    for name, (regs, st, ld) in ptxas_report(
+    for name, (regs, st, ld, stack) in ptxas_report(
             _build.build_log(), ("rsp_chain_gos_kernel",
-                                 "rsp_mag_gos_cfar_kernel")).items():
+                                 "rsp_mag_gos_cfar_kernel",
+                                 "rsp_chain_int_gos_kernel",
+                                 "rsp_rd_rows_kernel")).items():
         print(f"ptxas -v {name}: {regs} registers, {st} B spill stores, "
-              f"{ld} B spill loads")
+              f"{ld} B spill loads, {stack} B stack frame")
+
+    # ---- a yardstick for the range rows' FFT pair (never on the path) ----
+    rows = torch.complex(x.re, x.im).reshape(-1, SHAPE[-1])
+    fft_pair_ms = time_ms(lambda: torch.fft.ifft(torch.fft.fft(rows)))
+    print(f"yardstick: torch.fft.fft + torch.fft.ifft over {rows.shape[0]} "
+          f"rows of {SHAPE[-1]} (complex64): {fft_pair_ms:.4f} ms; card "
+          f"{card}")
 
     # ---- bounds: bytes over the memory rate, least work over the rates ----
     frames_n = samples // SHAPE[-1]
@@ -1195,14 +1212,8 @@ def main() -> int:
     # a sorted window sliding one cell a start: a deletion and an insertion,
     # each a binary search of ceil(log2(w + 1)) compares; both ranks read off
     sel_least = frames_n * 2 * w.bit_length() * int((nv > 0).sum())
-    # Kernel G's rsp_select2 counts, for each candidate, the cells below and
-    # equal to it: up to 2 nv^2 compares a start, fewer where both ranks turn
-    # up early (C and D slide a sorted window: O(w / 32) warp instructions)
-    sel_code = frames_n * 2 * int((nv ** 2).sum())
     print(f"rank selection, {SHAPE[0]}x{SHAPE[1]} frames: least work "
-          f"{sel_least:.4e} compares -> {sel_least / CMP_PER_S * 1e3:.4f} ms; "
-          f"Kernel G's counting selection at most {sel_code:.4e} -> "
-          f"{sel_code / CMP_PER_S * 1e3:.4f} ms (not a bound)")
+          f"{sel_least:.4e} compares -> {sel_least / CMP_PER_S * 1e3:.4f} ms")
     # (bytes a sample, fp32 operations, int32 operations, compares)
     work = {"chain_ca": (13, fft_ops, 0, 0), "mag_cfar": (13, 0, 0, 0),
             "mag_gos_cfar": (13, 0, 0, sel_least),
@@ -1257,6 +1268,8 @@ def main() -> int:
             igchain.stage_names)
     profile(lambda: rd_chain(x, rt), "range-Doppler kernel path",
             rd_chain.stage_names)
+    profile(lambda: krd.fused_rd_chain(x, rt, taps, rd_cfg, emit="map"),
+            "range-Doppler map (rd_map)", ())
     profile(lambda: rd_plain(x, rt), "range-Doppler plain path",
             rd_plain.stage_names)
     profile(lambda: run2d(x, rt, rt2d), "2-D detector kernel path", ())

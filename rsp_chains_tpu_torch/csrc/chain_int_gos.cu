@@ -10,17 +10,23 @@
 // the host sends the CASH mode register to the integer ops.
 //
 // The TPU sorts every window with a sliding odd-even merge ladder of lane
-// rotations. Here the selection is gos_cfar.cuh's counting selection,
-// templated on the value type: once per window start into shared memory,
-// read by the lag side of one cell and the lead side of another, both ranks
-// in one pass. Integer compares are exact, so the result is the integer
-// pipeline's bit for bit.
+// rotations. Here the selection is the warp-resident sliding sorted window
+// of Kernels C and D (gos_cfar.cuh, `rsp_gos_stats`) on int32: each warp
+// keeps its window's active cells sorted in registers, INT32_MAX under signed
+// compares past the nv active ones (the order and padding of the integer
+// ops, which sort an invalid cell as int32 max), and the lane holding each
+// rank stores it once per window start into shared memory, read by the lag
+// side of one cell and the lead side of another. Compares only: the result
+// is the integer pipeline's bit for bit, ties and square sums saturated to
+// INT32_MAX included.
 //
-// Bound on the H100: the rank selection, as for Kernels C and D (up to w^2
-// shared-memory compares per window start against 13 bytes of device traffic
-// per cell). Shared memory: the magnitude row and the frame, whose space the
-// two statistic rows take once the front is done (3 * (N + 2*RSP_PAD) ints):
-// 13,824 bytes at N = 1024, 199,680 at N = 16384.
+// Bound on the H100: device memory for the function (13 bytes a cell); the
+// kernel is held by Kernel F's integer FFT front (shared-memory radix-2
+// stages) and, as in C and D, the selection's pipe to shared memory and
+// shuffles, about 6 SM clocks a window start at w = 32. Shared memory: the
+// magnitude row and the frame, whose space the two statistic rows take once
+// the front is done (3 * (N + 2*RSP_PAD) ints): 13,824 bytes at N = 1024,
+// 199,680 at N = 16384.
 #include <cuda_runtime.h>
 
 #include "gos_cfar.cuh"
@@ -49,18 +55,9 @@ rsp_chain_int_gos_kernel(const int* __restrict__ re,
   const int w = 1 << r.log2w, g = r.guard, hi = r.n_active;
   if (r.algorithm == 1) {
     // st0[s] / st1[s]: the lag / lead rank statistic of the window of cells
-    // s - RSP_PAD .. s - RSP_PAD + w - 1
-    for (int s = RSP_PAD - g - w + threadIdx.x; s < RSP_PAD + n + g + 1;
-         s += blockDim.x) {
-      const int a = max(s - RSP_PAD, 0), b = min(s - RSP_PAD + w, hi);
-      const int nv = b - a;
-      int v0 = 0, v1 = 0;
-      if (nv > 0)
-        rsp_select2(row + RSP_PAD + a, nv, min(r.rank_lagg, nv - 1),
-                    min(r.rank_lead, nv - 1), v0, v1);
-      st0[s] = v0;
-      st1[s] = v1;
-    }
+    // s - RSP_PAD .. s - RSP_PAD + w - 1 over the active cells [0, hi)
+    rsp_gos_stats(row, st0, st1, RSP_PAD - g - w, RSP_PAD + n + g + 1, w,
+                  RSP_PAD, RSP_PAD + hi, r.rank_lagg, r.rank_lead);
     __syncthreads();
   }
 

@@ -1,6 +1,7 @@
 // Shared device functions of the GOSCA kernels (C: mag_gos_cfar.cu, D:
-// chain_gos.cu): the GOS / GOSCA / CASH CFAR tail over one range tile of a
-// frame's magnitude row in shared memory.
+// chain_gos.cu, and the rank selection of G: chain_int_gos.cu): the GOS /
+// GOSCA / CASH CFAR tail over one range tile of a frame's magnitude row in
+// shared memory.
 //
 // Replaces, in rsp_chains_tpu/kernels/cfar_pallas.py, the v3 GOS body
 // `_gos_rows_init` (:1232) + `_gos_tail` (:1317). The TPU builds every
@@ -24,17 +25,22 @@
 // at i+g+1, so each statistic is computed once per window START and read by
 // both sides; one pass of the selection finds both ranks.
 //
-// The rank selection (`rsp_gos_ranks`): each warp owns a contiguous run of
-// window starts and keeps the active cells of its current window sorted in
-// registers, one slot a lane (two at w = 64), +inf past the nv active ones.
-// A bitonic sort over the lanes builds the run's first window; each further
-// start replaces the outgoing cell by the incoming one with compares against
-// the two neighbouring slots (two shuffles, four at w = 64), and the lane
-// holding each rank stores it. The k-th slot of the sorted multiset is the
-// counting definition's k-th smallest, ties included, so the statistic is
-// exact: no arithmetic touches a value. Where the whole window is active
-// (all but the frame's edges) a start costs about twenty warp instructions,
-// six of them on the shared memory and shuffle pipe; nothing diverges.
+// The rank selection (`rsp_gos_ranks`), templated on the value type (float
+// for C and D, the int32 magnitudes for G): each warp owns a contiguous run
+// of window starts and keeps the active cells of its current window sorted
+// in registers, one slot a lane (two at w = 64), the type's top value (+inf,
+// INT32_MAX under signed compares) past the nv active ones. A bitonic sort
+// over the lanes builds the run's first window; each further start replaces
+// the outgoing cell by the incoming one with compares against the two
+// neighbouring slots (two shuffles, four at w = 64), and the lane holding each
+// rank stores it. The k-th slot of the sorted multiset is the counting
+// definition's k-th smallest, ties included, so the statistic is exact: no
+// arithmetic touches a value. An active cell equal to the top value (G's
+// square sum saturates to INT32_MAX) trades places with the padding, which
+// leaves the multiset, and so every rank below nv, as it was. Where the whole
+// window is active (all but the frame's edges) a start costs about twenty
+// warp instructions, six of them on the shared memory and shuffle pipe;
+// nothing diverges.
 //
 // Bound on the H100: the selection's pipe to shared memory and shuffles,
 // not device memory. A start of the whole-window loop issues two broadcast
@@ -43,8 +49,10 @@
 // an SM: about 6 SM clocks a start, some six times the time of the 13
 // bytes of device traffic a cell at w = 32. Loading four cells and storing four
 // ranks at a time would halve that pipe's share. Kernel D adds the FFT
-// front of Kernel A.
+// front of Kernel A, Kernel G the integer front of Kernel F (int_front.cuh).
 #pragma once
+
+#include <climits>
 
 #include "ca_cfar.cuh"
 
@@ -74,45 +82,31 @@ struct RspGosRegs {
   float scaler;
 };
 
-// The k0-th and k1-th smallest of x[0 .. nv), 0 <= k0, k1 < nv, by counting:
-// the int32 magnitudes of Kernel G (chain_int_gos.cu). Value v is the k-th
-// smallest exactly when (cells below v) <= k < (cells below v) + (cells
-// equal to v). Up to 2 nv^2 compares.
+// The value past the nv active cells of a sorted window: it sorts after
+// every value of the type.
 template <typename T>
-static __device__ __forceinline__ void rsp_select2(const T* x, int nv, int k0,
-                                                   int k1, T& v0, T& v1) {
-  bool f0 = false, f1 = false;
-  v0 = v1 = x[0];
-  for (int j = 0; j < nv && !(f0 && f1); ++j) {
-    const T v = x[j];
-    int below = 0, equal = 0;
-    for (int m = 0; m < nv; ++m) {
-      const T u = x[m];
-      below += u < v;
-      equal += u == v;
-    }
-    if (!f0 && below <= k0 && k0 < below + equal) {
-      v0 = v;
-      f0 = true;
-    }
-    if (!f1 && below <= k1 && k1 < below + equal) {
-      v1 = v;
-      f1 = true;
-    }
-  }
-}
+struct RspTop;
+template <>
+struct RspTop<float> {
+  static __device__ __forceinline__ float value() { return CUDART_INF_F; }
+};
+template <>
+struct RspTop<int> {
+  static __device__ __forceinline__ int value() { return INT_MAX; }
+};
 
 // What a lane keeps of its own `v` and its partner's `o` in a
 // compare-exchange: the lesser (`keep_min`) or the greater. The same strict
 // compare on both sides keeps the pair a permutation of its bits, ties,
 // -0 / +0 and NaN included.
-static __device__ __forceinline__ float rsp_keep(float v, float o,
-                                                 bool keep_min) {
+template <typename T>
+static __device__ __forceinline__ T rsp_keep(T v, T o, bool keep_min) {
   return (keep_min ? o < v : v < o) ? o : v;
 }
 
 // One value a lane, sorted ascending over the warp by a bitonic network.
-static __device__ __forceinline__ float rsp_warp_sort(float v, int lane) {
+template <typename T>
+static __device__ __forceinline__ T rsp_warp_sort(T v, int lane) {
 #pragma unroll
   for (int k = 2; k <= 32; k <<= 1) {
 #pragma unroll
@@ -124,7 +118,8 @@ static __device__ __forceinline__ float rsp_warp_sort(float v, int lane) {
 }
 
 // A bitonic sequence of one value a lane, sorted ascending over the warp.
-static __device__ __forceinline__ float rsp_warp_merge(float v, int lane) {
+template <typename T>
+static __device__ __forceinline__ T rsp_warp_merge(T v, int lane) {
 #pragma unroll
   for (int j = 16; j > 0; j >>= 1)
     v = rsp_keep(v, __shfl_xor_sync(RSP_FULL_WARP, v, j), (lane & j) == 0);
@@ -132,34 +127,33 @@ static __device__ __forceinline__ float rsp_warp_merge(float v, int lane) {
 }
 
 // One slide of the sorted window held in slot `lane` of `a` (and, for
-// kWide, slot 32 + lane of `b`): vo leaves, vi enters, either of them +inf
-// where its cell is inactive (the padding past nv). From its neighbours'
-// slots a lane finds its own in the new window: after vo goes, the slots
-// below vo keep theirs and the rest take their upper neighbour's; after vi
-// comes, the slots below vi keep theirs, the first of the rest takes vi and
-// the others their lower neighbour's. Compares only, no votes: equal values
-// may trade slots, the multiset of values is exact.
-template <bool kWide>
-static __device__ __forceinline__ void rsp_slide(float& a, float& b,
-                                                 float vo, float vi,
+// kWide, slot 32 + lane of `b`): vo leaves, vi enters, either of them the
+// top value where its cell is inactive (the padding past nv). From its
+// neighbours' slots a lane finds its own in the new window: after vo goes,
+// the slots below vo keep theirs and the rest take their upper neighbour's;
+// after vi comes, the slots below vi keep theirs, the first of the rest
+// takes vi and the others their lower neighbour's. Compares only, no votes:
+// equal values may trade slots, the multiset of values is exact.
+template <bool kWide, typename T>
+static __device__ __forceinline__ void rsp_slide(T& a, T& b, T vo, T vi,
                                                  int lane) {
-  const float inf = CUDART_INF_F;
+  const T inf = RspTop<T>::value();
   const int up = (lane - 1) & 31, dn = (lane + 1) & 31;
-  const float a_dn = __shfl_sync(RSP_FULL_WARP, a, dn);
-  const float a_up = __shfl_sync(RSP_FULL_WARP, a, up);
-  float a_next = lane == 31 ? inf : a_dn;
+  const T a_dn = __shfl_sync(RSP_FULL_WARP, a, dn);
+  const T a_up = __shfl_sync(RSP_FULL_WARP, a, up);
+  T a_next = lane == 31 ? inf : a_dn;
   if (kWide) {
     // across the halves: a's slot 31 is followed by b's slot 0, which the
     // wrapped shuffles deliver to lane 31 (b_dn) and lane 0 (a_up)
-    const float b_dn = __shfl_sync(RSP_FULL_WARP, b, dn);
-    const float b_up = __shfl_sync(RSP_FULL_WARP, b, up);
+    const T b_dn = __shfl_sync(RSP_FULL_WARP, b, dn);
+    const T b_up = __shfl_sync(RSP_FULL_WARP, b, up);
     a_next = lane == 31 ? b_dn : a_dn;
-    const float next = lane == 31 ? inf : b_dn;
-    const float prev = lane == 0 ? a_up : b_up;
-    const float cur = b < vo ? b : next, cur_prev = prev < vo ? prev : b;
+    const T next = lane == 31 ? inf : b_dn;
+    const T prev = lane == 0 ? a_up : b_up;
+    const T cur = b < vo ? b : next, cur_prev = prev < vo ? prev : b;
     b = cur < vi ? cur : (cur_prev < vi ? vi : cur_prev);
   }
-  const float cur = a < vo ? a : a_next, cur_prev = a_up < vo ? a_up : a;
+  const T cur = a < vo ? a : a_next, cur_prev = a_up < vo ? a_up : a;
   a = cur < vi ? cur : (lane > 0 && !(cur_prev < vi) ? cur_prev : vi);
 }
 
@@ -167,22 +161,22 @@ static __device__ __forceinline__ void rsp_slide(float& a, float& b,
 // min(k, nv-1)-th smallest (k = k0 / k1) of the nv active cells of
 // row[s .. s + w), 0 where nv = 0; cell c of the row is active when
 // alo <= c < ahi. The warp keeps the window sorted in slot `lane` of `a`
-// and, for kWide (w = 64), slot 32 + lane of `b`; +inf past nv; the lane
-// holding a rank stores it. Every branch is uniform over the warp.
-template <bool kWide>
+// and, for kWide (w = 64), slot 32 + lane of `b`; the top value past nv; the
+// lane holding a rank stores it. Every branch is uniform over the warp.
+template <bool kWide, typename T>
 static __device__ __forceinline__ void rsp_gos_ranks(
-    const float* __restrict__ row, float* st0, float* st1, int s_a, int s_b,
-    int w, int alo, int ahi, int k0, int k1) {
+    const T* __restrict__ row, T* st0, T* st1, int s_a, int s_b, int w,
+    int alo, int ahi, int k0, int k1) {
   const int lane = threadIdx.x & 31;
-  const float inf = CUDART_INF_F;
+  const T inf = RspTop<T>::value();
   // cell c is active when (unsigned)(c - alo) < span
   const unsigned span = (unsigned)max(ahi - alo, 0);
   // the first window, row[s_a .. s_a + w), by a bitonic sort
   int c = s_a + lane;
   bool act = lane < w && (unsigned)(c - alo) < span;
-  float a = rsp_warp_sort(act ? row[c] : inf, lane);
+  T a = rsp_warp_sort(act ? row[c] : inf, lane);
   int nv = __popc(__ballot_sync(RSP_FULL_WARP, act));
-  float b = inf;
+  T b = inf;
   if (kWide) {
     c += 32;
     act = (unsigned)(c - alo) < span;
@@ -190,7 +184,7 @@ static __device__ __forceinline__ void rsp_gos_ranks(
     b = rsp_warp_sort(act ? row[c] : inf, lane);
     // a ascending then b reversed is bitonic: the half-cleaner leaves the
     // lesser half in a, then each half is merged
-    const float t = __shfl_sync(RSP_FULL_WARP, b, 31 - lane);
+    const T t = __shfl_sync(RSP_FULL_WARP, b, 31 - lane);
     const bool swap = t < a;
     b = swap ? a : t;
     a = swap ? t : a;
@@ -200,10 +194,10 @@ static __device__ __forceinline__ void rsp_gos_ranks(
 
   auto store = [&](int s) {
     const int j0 = max(min(k0, nv - 1), 0), j1 = max(min(k1, nv - 1), 0);
-    const float x0 = kWide && j0 >= 32 ? b : a;
-    const float x1 = kWide && j1 >= 32 ? b : a;
-    if (lane == (j0 & 31)) st0[s] = nv > 0 ? x0 : 0.0f;
-    if (lane == (j1 & 31)) st1[s] = nv > 0 ? x1 : 0.0f;
+    const T x0 = kWide && j0 >= 32 ? b : a;
+    const T x1 = kWide && j1 >= 32 ? b : a;
+    if (lane == (j0 & 31)) st0[s] = nv > 0 ? x0 : T(0);
+    if (lane == (j1 & 31)) st1[s] = nv > 0 ? x1 : T(0);
   };
   // the starts s whose slide keeps the whole window active (cells s - 1
   // and s - 1 + w both active, nv == w throughout): no range tests, and the
@@ -231,6 +225,25 @@ static __device__ __forceinline__ void rsp_gos_ranks(
     }
     store(s);
   }
+}
+
+// st0[s] / st1[s] for the window starts s_lo <= s < s_hi: the lag / lead
+// rank statistic of the window [s, s + w) (see rsp_gos_ranks), each warp of
+// the block over a contiguous run of the starts. The caller synchronises
+// before reading them.
+template <typename T>
+static __device__ __forceinline__ void rsp_gos_stats(
+    const T* __restrict__ row, T* st0, T* st1, int s_lo, int s_hi, int w,
+    int alo, int ahi, int k0, int k1) {
+  const int warps = blockDim.x >> 5;
+  const int per = (s_hi - s_lo + warps - 1) / warps;
+  const int s_a = s_lo + (int)(threadIdx.x >> 5) * per;
+  const int s_b = min(s_a + per, s_hi);
+  if (s_a >= s_b) return;
+  if (w > 32)
+    rsp_gos_ranks<true>(row, st0, st1, s_a, s_b, w, alo, ahi, k0, k1);
+  else
+    rsp_gos_ranks<false>(row, st0, st1, s_a, s_b, w, alo, ahi, k0, k1);
 }
 
 // `row`: shared memory [RSP_PAD | T | RSP_PAD] holding the magnitude of cells
@@ -269,20 +282,8 @@ static __device__ __forceinline__ void rsp_gos_tail(
       st1[s] = m < CUDART_INF_F ? m / (float)max(sw, 1) : 0.0f;
     }
   } else if (r.algorithm == 1) {
-    // st0[s] / st1[s]: the lag / lead rank statistic of the window [s, s + w),
-    // each warp over a contiguous run of the starts
-    const int warps = blockDim.x >> 5;
-    const int per = (s_hi - s_lo + warps - 1) / warps;
-    const int s_a = s_lo + (int)(threadIdx.x >> 5) * per;
-    const int s_b = min(s_a + per, s_hi);
-    if (s_a < s_b) {
-      if (w > 32)
-        rsp_gos_ranks<true>(row, st0, st1, s_a, s_b, w, lo - base, hi - base,
-                            r.rank_lagg, r.rank_lead);
-      else
-        rsp_gos_ranks<false>(row, st0, st1, s_a, s_b, w, lo - base,
-                             hi - base, r.rank_lagg, r.rank_lead);
-    }
+    rsp_gos_stats(row, st0, st1, s_lo, s_hi, w, lo - base, hi - base,
+                  r.rank_lagg, r.rank_lead);
   }
   __syncthreads();
 

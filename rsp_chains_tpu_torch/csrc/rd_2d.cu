@@ -10,7 +10,8 @@
 // Bound on the H100: device memory, 13 bytes a sample (8 in, 4 + 1 out) for
 // the function. The split adds the 16-byte round trip of the Doppler output
 // and a 4-byte magnitude map written and read again (about 28 bytes a
-// sample on top of the 13); the TPU kernel kept both in VMEM.
+// sample on top of the 13); the TPU kernel kept both in VMEM. The range rows
+// are Kernel H's register-resident FFT pair (rd_front.cuh).
 #include <cuda_runtime.h>
 
 #include "cfar_2d.cuh"

@@ -18,6 +18,13 @@ Doppler row after it: the two are linear maps on different axes and commute
 (``csrc/rd_front.cuh``). The plain versions keep the JAX package's order
 (matched filter, then Doppler). A wrapper launches its kernel for CUDA
 tensors and uses the plain version (``*_reference``) only for CPU tensors.
+
+The row launch's FFT pair runs in passes of radix 16 (``ROW_RADICES``) and
+never reverses bits: its forward transform leaves the spectrum in
+digit-reversed order (``row_order``), H is multiplied in that order
+(``h_rows``), and the inverse brings the row back to natural order. The
+host builds both constants, and the passes' twiddles
+(``rd_row_twiddles``), once per size, replica and device.
 """
 
 from __future__ import annotations
@@ -95,6 +102,56 @@ def _check_rd(name: str, xp: C, cfg: ChainConfig, taps) -> tuple[int, int]:
     return p, n
 
 
+# the row launch's passes for each frame size: radix 16 at strides N / 16
+# and N / 256, then radix N / 256 over contiguous groups (csrc/rd_front.cuh)
+ROW_RADICES = {256: (16, 16), 512: (16, 16, 2), 1024: (16, 16, 4)}
+
+
+def row_order(n: int) -> np.ndarray:
+    """The spectrum bin at each cell of the row launch's forward output: a
+    decimation in frequency in place leaves bin ``R1 * k' + p // (n / R1)``
+    at cell p, k' the bin at cell ``p % (n / R1)`` of the sub-transform over
+    the remaining radices."""
+    def bin_at(p: int, radices: tuple, size: int) -> int:
+        if not radices:
+            return 0
+        r, sub = radices[0], size // radices[0]
+        return r * bin_at(p % sub, radices[1:], sub) + p // sub
+
+    return np.array([bin_at(p, ROW_RADICES[n], n) for p in range(n)])
+
+
+def row_twiddles(n: int) -> np.ndarray:
+    """The row launch's pass twiddles as [n + 16 * (n // 256), 2] float32
+    (cos, sin), computed in float64: W_n^(m k) at [k * n/16 + m] (pass 1,
+    m < n/16), then W_(n/16)^(m k) at [n + k * (n // 256) + m] (pass 2,
+    m < n/256); k < 16. Pass 3's are all 1."""
+    t, m2 = n // 16, n // 256
+    k = np.arange(16)[:, None]
+    w = np.concatenate([
+        np.exp(-2j * np.pi * k * np.arange(t) / n).ravel(),
+        np.exp(-2j * np.pi * k * np.arange(m2) / t).ravel()])
+    return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def rd_row_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(row_twiddles(n)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _permuted(h: torch.Tensor) -> torch.Tensor:
+    n = h.shape[-1]
+    return h[:, torch.from_numpy(row_order(n)).to(h.device)].contiguous()
+
+
+def h_rows(taps, n: int, normalize: bool, device: torch.device) -> torch.Tensor:
+    """``h_planes`` in ``row_order``: the [2, n] H the row launch multiplies
+    into its digit-reversed spectrum, computed once per replica, size and
+    device."""
+    return _permuted(h_planes(taps, n, normalize, device))
+
+
 @functools.lru_cache(maxsize=None)
 def _window(p: int, name, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(make_window(name, p)).to(device)
@@ -103,14 +160,14 @@ def _window(p: int, name, device: torch.device) -> torch.Tensor:
 def _front_args(p: int, n: int, taps, cfg: ChainConfig,
                 device: torch.device) -> tuple:
     """The front's constants, as the C entries take them: pulse twiddles,
-    window, range twiddles, H, log2 P, log2 N, the Doppler scale and the
-    fftshift flag."""
+    window, the range passes' twiddles, H in the row order, log2 P, log2 N,
+    the Doppler scale and the fftshift flag."""
     mf_cfg = cfg.matched_filter or MatchedFilterConfig()
     dop_cfg = cfg.doppler or DopplerConfig()
     return (_twiddles(p, device).data_ptr(),
             _window(p, dop_cfg.window, device).data_ptr(),
-            _twiddles(n, device).data_ptr(),
-            h_planes(taps, n, mf_cfg.normalize, device).data_ptr(),
+            rd_row_twiddles(n, device).data_ptr(),
+            h_rows(taps, n, mf_cfg.normalize, device).data_ptr(),
             p.bit_length() - 1, n.bit_length() - 1,
             doppler_scale(p, dop_cfg.scaling), int(dop_cfg.fft_shift))
 

@@ -514,6 +514,55 @@ def test_chain_int_gos_matches_reference(dev, n, regs, fft):
     _assert_exact(got, kint.chain_int_gos_reference(x, rt, fft_cfg, cfg.cfar))
 
 
+# the warp selection's edge cases on int32 (the CPU twins are in
+# tests/test_torch_int_kernels.py): (registers over GOS, frames, expanding
+# FFT stages). Full-scale frames through 5 or 7 expanding stages saturate
+# the square sum to INT32_MAX, the padding's value, in a third or more of
+# the cells; impulses give all-equal magnitudes
+INT_GOS_EDGES = {
+    "SQR saturated, high ranks": (
+        dict(mag_mode=1, ref_window_size=16, guard_window_size=2,
+             index_lagg=15, index_lead=12), "full", 5),
+    "SQR saturated, ranks 0 / 8, cut": (
+        dict(mag_mode=1, ref_window_size=16, guard_window_size=4,
+             index_lagg=0, index_lead=8, cfar_fft_size=180), "full", 7),
+    "all equal": (dict(ref_window_size=8, guard_window_size=2, index_lagg=3,
+                       index_lead=7), "impulses", 0),
+    "ranks 0 / w - 1, cut": (
+        dict(ref_window_size=16, guard_window_size=3, index_lagg=0,
+             index_lead=15, cfar_fft_size=200), "random", 0),
+    "w 2": (dict(ref_window_size=2, guard_window_size=1, index_lagg=1,
+                 index_lead=0, peak_grouping=1), "random", 0),
+    "w 64, cut": (dict(ref_window_size=64, guard_window_size=8,
+                       index_lagg=63, index_lead=40, cfar_fft_size=230),
+                  "random", 0),
+    "w 64, SQR saturated": (
+        dict(mag_mode=1, ref_window_size=64, guard_window_size=5,
+             index_lagg=50, index_lead=10), "full", 5),
+}
+
+
+@pytest.mark.parametrize("n", [256, 1024, 4096, 16384])
+@pytest.mark.parametrize("case", list(INT_GOS_EDGES))
+def test_chain_int_gos_is_exact_at_selection_edges(dev, n, case):
+    regs, frames, expanding = INT_GOS_EDGES[case]
+    if frames == "impulses":
+        re = torch.zeros(3, n, dtype=torch.int32, device=dev)
+        re[:, 0] = torch.tensor([1000, 2000, 3000], dtype=torch.int32)
+        x = rsp.C(re, torch.zeros_like(re))
+    else:
+        x = _int_iq((5, n), dev, seed=n + 3,
+                    amp=32767 if frames == "full" else 30000)
+    cfg = _gos_cfg(n)
+    fft_cfg = _fft(n, expand=tuple(range(expanding)))
+    rt = rsp.RuntimeConfig.make(**{"fft_size": n, **GOS, **regs})
+    before = _build.LAUNCHES["chain_int_gos"]
+    got = kint.chain_int_gos(x, rt, fft_cfg, cfg.cfar)
+    assert _build.LAUNCHES["chain_int_gos"] == before + 1
+    _assert_exact(got, kint.chain_int_gos_reference(x, rt, fft_cfg,
+                                                    cfg.cfar))
+
+
 def _bit_true(cfar):
     return rsp.ChainConfig(cfar=cfar, fixed_point=rsp.FixedPointConfig(
         enabled=True, width=16, bin_point=0, bit_true=True))
@@ -632,7 +681,8 @@ def _assert_map_close(got, want):
     assert err / scale < 1e-4, err / scale
 
 
-RD_SHAPES = [(8, 256), (64, 512), (64, 1024), (512, 1024)]
+RD_SHAPES = [(8, 256), (64, 512), (64, 1024), (512, 1024), (512, 256),
+             (8, 1024)]
 
 
 @pytest.mark.parametrize("p, n", RD_SHAPES)
@@ -662,6 +712,26 @@ def test_rd_map_matches_reference(dev, p, n, window, fft_shift, scaling):
     assert _build.LAUNCHES["rd_map"] == before + 1
     _assert_map_close(got, krd.fused_rd_chain_reference(x, rt, TAPS, cfg,
                                                         emit="map"))
+
+
+# the row launch takes 256 / (N / 16) rows a block: CPI batches whose rows
+# leave the last block part empty
+@pytest.mark.parametrize("batch, p, n", [(1, 8, 256), (3, 8, 256),
+                                         (5, 8, 512), (1, 16, 1024)])
+@pytest.mark.parametrize("emit", ["cfar", "map"])
+def test_rd_rows_of_a_part_filled_block(dev, batch, p, n, emit):
+    cfg = _rd_cfg(p, n)
+    x = _cpi((batch, p, n), dev, seed=batch)
+    rt = rsp.RuntimeConfig.make(fft_size=n, peak_grouping=1)
+    name = "rd_ca" if emit == "cfar" else "rd_map"
+    before = _build.LAUNCHES[name]
+    got = krd.fused_rd_chain(x, rt, TAPS, cfg, emit=emit)
+    assert _build.LAUNCHES[name] == before + 1
+    want = krd.fused_rd_chain_reference(x, rt, TAPS, cfg, emit=emit)
+    if emit == "map":
+        _assert_map_close(got, want)
+    else:
+        _assert_close(got, want)
 
 
 def _pc_cfg(n):
