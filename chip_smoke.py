@@ -47,13 +47,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    cards or more the sharded paths run once more on a mesh of distinct
    cards; with one, a line says so;
 5. times each kernel and its plain version, and the chains, with CUDA events;
+   times Kernel F's row plan beside its frame-per-block kernel on the same
+   frames of 1024 (the bench's stage flags, and seven expanding stages);
    times Kernels C, D and G at the windows 8, 32 and 64, each also with the
    algorithm register at 0, where the CA sums take the rank selection's
    place (the difference is the selection's own time); times, as a
    yardstick for Kernel H's range rows and used nowhere in the port,
    ``torch.fft.fft`` + ``torch.fft.ifft`` over the same 16,384 rows of
-   1024; prints the registers, spills and stack frames of C, D, G and the
-   range-row kernels from the ``-Xptxas -v`` report;
+   1024; prints the registers, spills and stack frames of A's and F's row
+   kernels, C, D, G and the range-row kernels from the ``-Xptxas -v``
+   report; builds A's and F's two sources once more at 1, 2, 3 and 4
+   blocks an SM (``-DRSP_ROWS_BLOCKS``), each build checked against the
+   plain versions, with its registers, and timed;
 6. profiles the full-size kernel path, the plain path, the shrunken-size
    kernel path, the default chain's GOS path, the bit-true GOSCA chain's
    GOS path, the range-Doppler kernel path (``rd_ca``), its map
@@ -75,9 +80,10 @@ launches on the main paths, its error, its time, its plain version's, and its
 bound: the larger of its bytes over 3.35 TB/s and the least operations the
 function needs over the H100's rate for their type (the FFT's 5 N log2 N a
 frame, two along range and one along the pulses of each range column for the
-range-Doppler kernels; for the rank selections, a sorted window that slides
-by one cell, two binary searches a window start; the halo kernels by their
-bytes alone).
+range-Doppler kernels; for the bit-true kernels N/2 log2 N butterflies of 17
+integer operations a frame; for the rank selections, a sorted window that
+slides by one cell, two binary searches a window start; the halo kernels by
+their bytes alone).
 """
 
 from __future__ import annotations
@@ -125,6 +131,17 @@ FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 # multiply-adds on the FMA pipe
 CMP_PER_S = FP32_OPS_PER_S / 4
 INT_OPS_PER_S = FP32_OPS_PER_S / 2
+# the bit-true butterfly's integer operations (csrc/int_front.cuh
+# rsp_int_butterfly) at the bench's stage flags, no expanding and no keepLSB
+# stage, after constant folding: the four wrapping sums and differences with
+# the RoundHalfUp +1 (one three-input add each) and their halving shifts
+# (4 x 2); the sum side's unity twiddle (32768, 0), a sign extension of the
+# low 17 bits a part (2); the negated twiddle sine (1); the difference
+# side's two 1.15 products, each two multiply-adds (the rounding constant
+# the first one's addend) and a shift (2 x 3)
+INT_BUTTERFLY_OPS = 8 + 2 + 1 + 6
+# the blocks an SM at which Kernels A's and F's row kernels are compared
+ROW_BLOCKS = (1, 2, 3, 4)
 WIRE_LSB_MAX, WIRE_LSB_MEAN = 2, 0.05
 # register settings of the default elaboration's sweep, each written over
 # GOS_REGS, with the kernel each must launch; the third item is written raw,
@@ -413,6 +430,86 @@ def profile(fn, label: str, stages, calls: int = 20, top: int = 5) -> None:
     for e in kernels[:top]:
         print(f"  kernel {e.key[:70]}: {e.self_device_time_total / calls / 1e3:.4f} ms, "
               f"{e.count // calls} a call")
+
+
+def row_blocks(card: str, x, xi, rt, cfg) -> None:
+    """Kernels A's and F's row kernels built with each of ``ROW_BLOCKS``
+    blocks an SM in their launch bounds (``-DRSP_ROWS_BLOCKS``; only their
+    two sources, all builds at once), each held against its plain version on
+    the frames ``x`` (A at the bench bar) and ``xi`` (F equal), with its
+    registers, spills and stack, and timed in turns (``ROW_BLOCKS``, then
+    reversed), each time the mean of its two."""
+    import ctypes
+
+    import torch
+
+    from rsp_chains_tpu_torch import CfarOutput
+    from rsp_chains_tpu_torch.kernels import _build
+    from rsp_chains_tpu_torch.kernels import cfar as kcfar
+    from rsp_chains_tpu_torch.kernels import chain as kchain
+    from rsp_chains_tpu_torch.kernels import int_chain as kint
+    from rsp_chains_tpu_torch.ops.fft import fft_scale
+
+    sources = ("chain_ca.cu", "chain_int.cu")
+    flags = [(f"-DRSP_ROWS_BLOCKS={b}",) for b in ROW_BLOCKS]
+    t0 = time.perf_counter()
+    libs = _build.variants(sources, flags)
+    print(f"build of {' and '.join(sources)} at {ROW_BLOCKS} blocks an SM: "
+          f"{time.perf_counter() - t0:.2f} s")
+    dev, n = x.re.device, x.shape[-1]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    kernels = {  # name: (entry, kernel argument types, frames, dtype, args)
+        "chain_ca": ("rsp_chain_ca", [P, I, ctypes.c_float, kcfar.CaRegs], x,
+                     torch.float32, (
+                         kchain._row_twiddles(n, dev).data_ptr(),
+                         n.bit_length() - 1, fft_scale(n, cfg.fft),
+                         kcfar.ca_registers(rt, cfg.cfar, n))),
+        "chain_int": ("rsp_chain_int_rows", [P, I, I, I, kint.IntRegs], xi,
+                      torch.int32, (
+                          kint._int_twiddles(n, dev).data_ptr(),
+                          n.bit_length() - 1, *kint.fft_masks(cfg.fft, n),
+                          kint.int_registers(rt, cfg.cfar, n))),
+    }
+
+    def runner(lib, entry, types, v, dtype, args):
+        fn = getattr(lib, entry)
+        fn.argtypes = [P] * 4 + [I, P, *types]
+        fn.restype = ctypes.c_int
+
+        def run():
+            thr = torch.empty(v.shape, dtype=dtype, device=dev)
+            pk = torch.empty(v.shape, dtype=torch.uint8, device=dev)
+            rc = fn(v.re.data_ptr(), v.im.data_ptr(), thr.data_ptr(),
+                    pk.data_ptr(), v.re.numel() // n,
+                    torch.cuda.current_stream(dev).cuda_stream, *args)
+            if rc != 0:
+                raise RuntimeError(f"{entry} launch failed with CUDA error {rc}")
+            return CfarOutput(threshold=thr, peaks=pk.view(torch.bool))
+        return run
+
+    want_a = kchain.chain_ca_reference(x, rt, cfg.fft, cfg.cfar)
+    want_f = kint.chain_int_reference(xi, rt, cfg.fft, cfg.cfar)
+    runs = {}
+    for b, f, lib in zip(ROW_BLOCKS, flags, libs):
+        for name, (entry, types, v, dtype, args) in kernels.items():
+            runs[name, b] = runner(lib, entry, types, v, dtype, args)
+        compare(runs["chain_ca", b](), want_a, f"chain_ca, {b} blocks an SM")
+        compare_exact(runs["chain_int", b](), want_f,
+                      f"chain_int, {b} blocks an SM")
+        for name, (regs, st, ld, stack) in ptxas_report(
+                _build.build_log(sources, f), ("rsp_chain_ca_rows_kernel",
+                                               "rsp_chain_int_rows_kernel")
+        ).items():
+            print(f"{b} blocks an SM: ptxas -v {name}: {regs} registers, {st} "
+                  f"B spill stores, {ld} B spill loads, {stack} B stack frame")
+    for name in kernels:
+        ms = {b: [] for b in ROW_BLOCKS}
+        for b in ROW_BLOCKS + ROW_BLOCKS[::-1]:
+            ms[b].append(time_ms(runs[name, b]))
+        for b, (t1, t2) in ms.items():
+            print(f"{name} at {'x'.join(map(str, x.shape))}, {b} blocks an "
+                  f"SM: {(t1 + t2) / 2:.4f} ms ({t1:.4f}, {t2:.4f}); card "
+                  f"{card}")
 
 
 def main() -> int:
@@ -1160,6 +1257,30 @@ def main() -> int:
               f"plain path {plain_ms:.4f} ms = "
               f"{samples / plain_ms / 1e3:.1f} Msamples/s; card {card}")
 
+    # ---- Kernel F's two routes at the headline shape ----
+    # the row plan (frames of 256-1024) beside the frame-per-block kernel
+    # (entry rsp_chain_int, the route of frames of 2048 and more) called
+    # directly on the same frames, at the bench's stage flags and at seven
+    # expanding stages, where the row plan's stages take their flags at run
+    # time; exact against each other, timed in turns (rows, frame, frame,
+    # rows), each the mean of its two
+    wide = rsp.FftConfig(max_size=SHAPE[-1], expand_logic=tuple(
+        int(s < 7) for s in range(bw)))
+    for label, fcfg in (("bench stage flags", icfg.fft),
+                        ("7 expanding stages", wide)):
+        rows_f, frame_f = (
+            lambda s=s, c=fcfg: kint._int_kernel("chain_int", s, xi16, rt, c,
+                                                 icfg.cfar)
+            for s in ("rsp_chain_int_rows", "rsp_chain_int"))
+        compare_exact(rows_f(), frame_f(), f"chain_int row plan vs "
+                                           f"frame-per-block [{label}]")
+        r1, f1, f2, r2 = (time_ms(fn) for fn in (rows_f, frame_f, frame_f,
+                                                 rows_f))
+        print(f"chain_int at {'x'.join(map(str, SHAPE))}, {label}: row plan "
+              f"{(r1 + r2) / 2:.4f} ms ({r1:.4f}, {r2:.4f}), frame-per-block "
+              f"kernel {(f1 + f2) / 2:.4f} ms ({f1:.4f}, {f2:.4f}); card "
+              f"{card}")
+
     # ---- the rank selection of Kernels C, D and G on its own ----
     # each kernel called directly at the GOS registers over the windows of
     # SEL_WINDOWS, and at each window with the algorithm register at 0,
@@ -1187,12 +1308,17 @@ def main() -> int:
                   f"{ms0:.4f} ms ({t0:.4f}, {t0b:.4f}); the selection "
                   f"{ms1 - ms0:.4f} ms; card {card}")
     for name, (regs, st, ld, stack) in ptxas_report(
-            _build.build_log(), ("rsp_chain_gos_kernel",
+            _build.build_log(), ("rsp_chain_ca_rows_kernel",
+                                 "rsp_chain_int_rows_kernel",
+                                 "rsp_chain_gos_kernel",
                                  "rsp_mag_gos_cfar_kernel",
                                  "rsp_chain_int_gos_kernel",
                                  "rsp_rd_rows_kernel")).items():
         print(f"ptxas -v {name}: {regs} registers, {st} B spill stores, "
               f"{ld} B spill loads, {stack} B stack frame")
+
+    # ---- A's and F's row kernels at 1-4 blocks an SM ----
+    row_blocks(card, x, xi16, rt, cfg)
 
     # ---- a yardstick for the range rows' FFT pair (never on the path) ----
     rows = torch.complex(x.re, x.im).reshape(-1, SHAPE[-1])
@@ -1204,6 +1330,7 @@ def main() -> int:
     # ---- bounds: bytes over the memory rate, least work over the rates ----
     frames_n = samples // SHAPE[-1]
     fft_ops = frames_n * 5 * SHAPE[-1] * bw
+    int_fft_ops = frames_n * SHAPE[-1] // 2 * bw * INT_BUTTERFLY_OPS
     log2w, guard = window_registers(grt, gcfg.cfar)
     w = 1 << log2w
     starts = np.arange(-guard - w, SHAPE[-1] + guard + 1)
@@ -1218,8 +1345,8 @@ def main() -> int:
     work = {"chain_ca": (13, fft_ops, 0, 0), "mag_cfar": (13, 0, 0, 0),
             "mag_gos_cfar": (13, 0, 0, sel_least),
             "chain_gos": (13, fft_ops, 0, sel_least),
-            "wire_ca": (8, fft_ops, 0, 0), "chain_int": (13, 0, fft_ops, 0),
-            "chain_int_gos": (13, 0, fft_ops, sel_least)}
+            "wire_ca": (8, fft_ops, 0, 0), "chain_int": (13, 0, int_fft_ops, 0),
+            "chain_int_gos": (13, 0, int_fft_ops, sel_least)}
     # the range-Doppler front: two FFTs along range a pulse and one along the
     # pulses a range column; pulse compression: one FFT a frame
     p_log2 = SHAPE[1].bit_length() - 1

@@ -1,7 +1,9 @@
 // Shared device functions of the bit-true integer kernels (F: chain_int.cu,
-// G: chain_int_gos.cu): the integer FFT and magnitude front, the integer CA
-// window sums and the threshold and peak test, over one frame in shared
-// memory.
+// G: chain_int_gos.cu): the integer FFT butterfly, the frame-per-block FFT
+// and magnitude front (G, and F for frames of 2048 and more; F's frames of
+// 256-1024 take the same butterflies on the row plan of int_rows.cuh), the
+// integer CA window sums and the threshold and peak test, over one frame in
+// shared memory.
 //
 // Replaces, in rsp_chains_tpu/kernels/int_chain_pallas.py, `_int_front`
 // (:131) and `_int_thr_peaks_tail` (:207), and the CA rows of
@@ -85,6 +87,44 @@ static __device__ __forceinline__ int rsp_rhu15_dot(int a, int b, int wa,
   return rsp_wadd(h, t >> 8) >> 7;
 }
 
+// One radix-2 DIF butterfly of the integer FFT on (a, b), in place: the
+// wrapping sum and difference; on a non-expanding stage the RoundHalfUp
+// halving, or on a keepLSB stage the 16-bit trim; the 1.15 twiddle w on the
+// difference and unity on the sum, in the split form once the data has
+// grown (an earlier or this stage expanded); a keepLSB stage trims again.
+static __device__ __forceinline__ void rsp_int_butterfly(
+    int& ar, int& ai, int& br, int& bi, int2 w, bool expanding, bool lsb,
+    bool grown) {
+  int sr = rsp_wadd(ar, br), si = rsp_wadd(ai, bi);
+  int dr = rsp_wsub(ar, br), di = rsp_wsub(ai, bi);
+  if (lsb) {
+    sr = rsp_wrap16(sr);
+    si = rsp_wrap16(si);
+    dr = rsp_wrap16(dr);
+    di = rsp_wrap16(di);
+  } else if (!expanding) {
+    sr = rsp_wadd(sr, 1) >> 1;
+    si = rsp_wadd(si, 1) >> 1;
+    dr = rsp_wadd(dr, 1) >> 1;
+    di = rsp_wadd(di, 1) >> 1;
+  }
+  // the sum side's twiddle is unity, (32768, 0), multiplied all the same
+  int yr0 = rsp_rhu15_dot(sr, si, 32768, 0, grown);
+  int yi0 = rsp_rhu15_dot(sr, si, 0, 32768, grown);
+  int yr1 = rsp_rhu15_dot(dr, di, w.x, rsp_wsub(0, w.y), grown);
+  int yi1 = rsp_rhu15_dot(dr, di, w.y, w.x, grown);
+  if (lsb) {
+    yr0 = rsp_wrap16(yr0);
+    yi0 = rsp_wrap16(yi0);
+    yr1 = rsp_wrap16(yr1);
+    yi1 = rsp_wrap16(yi1);
+  }
+  ar = yr0;
+  ai = yi0;
+  br = yr1;
+  bi = yi1;
+}
+
 // The integer FFT of the frame xr/xi (shared memory, 2^log2n ints each,
 // natural order) in place; the result is in bit-reversed order. tw[h + j]
 // holds the 1.15 twiddle (cos, sin) of W_{2h}^j, j < h, for every stage's
@@ -108,36 +148,8 @@ static __device__ __forceinline__ void rsp_int_fft(int* xr, int* xi,
       const int j = b & (half - 1);
       const int i0 = ((b >> (log2n - 1 - s)) << (log2n - s)) + j;
       const int i1 = i0 + half;
-      const int ar = xr[i0], ai = xi[i0], br = xr[i1], bi = xi[i1];
-      int sr = rsp_wadd(ar, br), si = rsp_wadd(ai, bi);
-      int dr = rsp_wsub(ar, br), di = rsp_wsub(ai, bi);
-      if (lsb) {
-        sr = rsp_wrap16(sr);
-        si = rsp_wrap16(si);
-        dr = rsp_wrap16(dr);
-        di = rsp_wrap16(di);
-      } else if (!expanding) {
-        sr = rsp_wadd(sr, 1) >> 1;
-        si = rsp_wadd(si, 1) >> 1;
-        dr = rsp_wadd(dr, 1) >> 1;
-        di = rsp_wadd(di, 1) >> 1;
-      }
-      const int2 w = tw[half + j];
-      // the sum side's twiddle is unity, (32768, 0), multiplied all the same
-      int yr0 = rsp_rhu15_dot(sr, si, 32768, 0, grown);
-      int yi0 = rsp_rhu15_dot(sr, si, 0, 32768, grown);
-      int yr1 = rsp_rhu15_dot(dr, di, w.x, rsp_wsub(0, w.y), grown);
-      int yi1 = rsp_rhu15_dot(dr, di, w.y, w.x, grown);
-      if (lsb) {
-        yr0 = rsp_wrap16(yr0);
-        yi0 = rsp_wrap16(yi0);
-        yr1 = rsp_wrap16(yr1);
-        yi1 = rsp_wrap16(yi1);
-      }
-      xr[i0] = yr0;
-      xi[i0] = yi0;
-      xr[i1] = yr1;
-      xi[i1] = yi1;
+      rsp_int_butterfly(xr[i0], xi[i0], xr[i1], xi[i1], tw[half + j],
+                        expanding, lsb, grown);
     }
     __syncthreads();
   }
@@ -225,6 +237,15 @@ static __device__ __forceinline__ int rsp_int_combine(int mode, int s_lag,
   return rsp_wadd(s_lag, s_lead) >> 1;
 }
 
+// The threshold of a noise statistic: (noise * scaler_q + 32) >> 6
+// (linear) or noise + scaler_add (log), wrapping.
+static __device__ __forceinline__ int rsp_int_threshold(int noise,
+                                                        const RspIntRegs& r) {
+  return r.log_or_linear == 1
+             ? rsp_wadd(rsp_wmul(noise, r.scaler_q), 1 << 5) >> 6
+             : rsp_wadd(noise, r.scaler_add);
+}
+
 // Threshold and peak flag of the active cell i at `c` in the row (raw
 // magnitudes; its left neighbour is active whenever it exists, its right one
 // only below n_active).
@@ -233,10 +254,7 @@ static __device__ __forceinline__ void rsp_int_thr_peak(const int* c, int i,
                                                         const RspIntRegs& r,
                                                         int& thr,
                                                         uint8_t& peak) {
-  const int t =
-      r.log_or_linear == 1
-          ? rsp_wadd(rsp_wmul(noise, r.scaler_q), 1 << 5) >> 6
-          : rsp_wadd(noise, r.scaler_add);
+  const int t = rsp_int_threshold(noise, r);
   const int m = c[0];
   bool pk = m > t;
   if (pk && r.peak_grouping == 1) {

@@ -27,7 +27,7 @@ SOURCES = ("mag_cfar.cu", "chain_ca.cu", "mag_gos_cfar.cu", "chain_gos.cu",
            "wire_ca.cu", "chain_int.cu", "chain_int_gos.cu", "rd_ca.cu",
            "rd_2d.cu", "halo.cu")
 HEADERS = ("ca_cfar.cuh", "gos_cfar.cuh", "fft_radix2.cuh", "int_front.cuh",
-           "rd_front.cuh", "cfar_2d.cuh")
+           "int_rows.cuh", "row_fft.cuh", "rd_front.cuh", "cfar_2d.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -53,17 +53,17 @@ def _nvcc() -> str:
                        "it is needed to build the CUDA kernels")
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+def library_path(sources: tuple = SOURCES, defines: tuple = ()) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
+    for name in sources + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"librsp_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run(procs: list) -> str:
+def _run(procs: list) -> list:
     """Wait for every ``(cmd, Popen)``; raise on the first failure, after
-    stopping the others. Returns the compilers' reports."""
+    stopping the others. Returns each command's report."""
     report = []
     try:
         for cmd, proc in procs:
@@ -77,29 +77,35 @@ def _run(procs: list) -> str:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    return "".join(report)
+    return report
 
 
-def _compile(out: Path) -> None:
+def _popen(cmd: list, **kw) -> tuple:
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, **kw)
+
+
+def _compile(builds: list) -> None:
+    """Build each ``(library path, sources, -D flags)`` of ``builds``: every
+    source of every build compiles at once, then each build links."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     # build under a temporary directory, then rename the library: a
     # concurrent process sees either no library or a whole one
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
-        compiles = []
-        for src, obj in zip(SOURCES, objs):
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)]
-            compiles.append((cmd, subprocess.Popen(
-                cmd, cwd=CSRC, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True)))
-        report = _run(compiles)
-        lib = os.path.join(tmp, out.name)
-        cmd = [nvcc, "-shared", "-o", lib, *objs]
-        report += _run([(cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
-        out.with_suffix(".log").write_text(report)
-        os.replace(lib, out)
+        objs = [[os.path.join(tmp, f"{k}_{Path(s).stem}.o") for s in sources]
+                for k, (_, sources, _) in enumerate(builds)]
+        reports = iter(_run([
+            _popen([nvcc, *NVCC_FLAGS, *defines, "-c", "-o", obj,
+                    str(CSRC / src)], cwd=CSRC)
+            for (_, sources, defines), o in zip(builds, objs)
+            for src, obj in zip(sources, o)]))
+        for (out, sources, _), o in zip(builds, objs):
+            report = "".join(next(reports) for _ in sources)
+            lib = os.path.join(tmp, out.name)
+            report += _run([_popen([nvcc, "-shared", "-o", lib, *o])])[0]
+            out.with_suffix(".log").write_text(report)
+            os.replace(lib, out)
 
 
 @functools.lru_cache(maxsize=1)
@@ -108,14 +114,25 @@ def library() -> ctypes.CDLL:
     global BUILDS
     path = library_path()
     if not path.exists():
-        _compile(path)
+        _compile([(path, SOURCES, ())])
     lib = ctypes.CDLL(str(path))
     BUILDS += 1
     return lib
 
 
-def build_log() -> str:
+def variants(sources: tuple, defines: list) -> list:
+    """Libraries of ``sources`` alone, one for each tuple of ``-D`` flags in
+    ``defines``, all compiled at once: for comparing a kernel's build
+    options. Their loads do not count in ``BUILDS``."""
+    paths = [library_path(sources, d) for d in defines]
+    todo = [(p, sources, d) for p, d in zip(paths, defines) if not p.exists()]
+    if todo:
+        _compile(todo)
+    return [ctypes.CDLL(str(p)) for p in paths]
+
+
+def build_log(sources: tuple = SOURCES, defines: tuple = ()) -> str:
     """The compiler's report (ptxas registers, shared memory, spills) of the
-    library's build, or '' before the first build."""
-    log = library_path().with_suffix(".log")
+    library's build (or of a variant's), or '' before the first build."""
+    log = library_path(sources, defines).with_suffix(".log")
     return log.read_text() if log.exists() else ""

@@ -20,11 +20,15 @@ chain stages that honour the FFT-size and CFAR registers.
 * ``fused_chain_ca_op``, ``fused_chain_gos_op`` and ``fused_wire_chain_op``,
   the ports of ``chain_pallas.py:1402``, ``:1350`` and ``:1432``.
 
-The kernels share the FFT front ``csrc/fft_radix2.cuh``; each CUDA source says
-what bounds its kernel on the H100 and how its design answers. The spectrum
-stays in shared memory: a kernel reads the IQ pair once and writes threshold
-and peaks once. A wrapper launches its kernel for CUDA tensors and uses the
-plain version (``*_reference``) only for CPU tensors.
+Kernel A runs the register-resident row FFT of ``csrc/row_fft.cuh`` (Kernel
+H's range rows share it): radix-16 passes over ``ROW_RADICES``, the spectrum
+left in digit-reversed order (``row_order``) and each magnitude stored at its
+natural bin, the pass twiddles ``row_twiddles``. Kernels D, E and I keep the
+radix-2 FFT front ``csrc/fft_radix2.cuh``. Each CUDA source says what bounds
+its kernel on the H100 and how its design answers. The spectrum stays on
+chip: a kernel reads the IQ pair once and writes threshold and peaks once. A
+wrapper launches its kernel for CUDA tensors and uses the plain version
+(``*_reference``) only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -48,6 +52,9 @@ from .cfar import (
 
 FUSABLE_SIZES = (256, 512, 1024)
 PC_SIZES = (256, 512, 1024, 2048, 4096)   # Kernel I (presets.py:462-464)
+# the row plan's passes for each frame size (csrc/row_fft.cuh): radix 16 at
+# strides N / 16 and N / 256, then radix N / 256 over contiguous groups
+ROW_RADICES = {256: (16, 16), 512: (16, 16, 2), 1024: (16, 16, 4)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -56,6 +63,38 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
     ang = -2.0 * np.pi * np.arange(n // 2) / n
     tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
     return torch.from_numpy(tw).to(device)
+
+
+def row_order(n: int) -> np.ndarray:
+    """The spectrum bin at each cell of the row plan's forward output: a
+    decimation in frequency in place leaves bin ``R1 * k' + p // (n / R1)``
+    at cell p, k' the bin at cell ``p % (n / R1)`` of the sub-transform over
+    the remaining radices."""
+    def bin_at(p: int, radices: tuple, size: int) -> int:
+        if not radices:
+            return 0
+        r, sub = radices[0], size // radices[0]
+        return r * bin_at(p % sub, radices[1:], sub) + p // sub
+
+    return np.array([bin_at(p, ROW_RADICES[n], n) for p in range(n)])
+
+
+def row_twiddles(n: int) -> np.ndarray:
+    """The row plan's pass twiddles as [n + 16 * (n // 256), 2] float32
+    (cos, sin), computed in float64: W_n^(m k) at [k * n/16 + m] (pass 1,
+    m < n/16), then W_(n/16)^(m k) at [n + k * (n // 256) + m] (pass 2,
+    m < n/256); k < 16. Pass 3's are all 1."""
+    t, m2 = n // 16, n // 256
+    k = np.arange(16)[:, None]
+    w = np.concatenate([
+        np.exp(-2j * np.pi * k * np.arange(t) / n).ravel(),
+        np.exp(-2j * np.pi * k * np.arange(m2) / t).ravel()])
+    return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _row_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(row_twiddles(n)).to(device)
 
 
 def _check_fusable(name: str, n: int, fft_cfg: FftConfig) -> None:
@@ -69,14 +108,15 @@ def _check_fusable(name: str, n: int, fft_cfg: FftConfig) -> None:
     check_keep_msb(fft_cfg)
 
 
-def _chain_kernel(name: str, symbol: str, regs, x: CLike,
-                  fft_cfg: FftConfig) -> CfarOutput:
-    """Launch a whole-chain kernel over the CUDA IQ frames ``x``."""
+def _chain_kernel(name: str, symbol: str, regs, x: CLike, fft_cfg: FftConfig,
+                  tw: torch.Tensor) -> CfarOutput:
+    """Launch a whole-chain kernel over the CUDA IQ frames ``x`` with the
+    twiddle table ``tw``."""
     n = x.shape[-1]
     fn = entry(symbol, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                type(regs))
-    return launch(name, x, fn, _twiddles(n, x.device).data_ptr(),
-                  n.bit_length() - 1, fft_scale(n, fft_cfg), regs)
+    return launch(name, x, fn, tw.data_ptr(), n.bit_length() - 1,
+                  fft_scale(n, fft_cfg), regs)
 
 
 def chain_ca_reference(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
@@ -98,7 +138,8 @@ def chain_ca(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
     if takes_plain_path(xp, "chain_ca"):
         return chain_ca_reference(xp, rt, fft_cfg, cfar_cfg)
     return _chain_kernel("chain_ca", "rsp_chain_ca",
-                         ca_registers(rt, cfar_cfg, n), xp, fft_cfg)
+                         ca_registers(rt, cfar_cfg, n), xp, fft_cfg,
+                         _row_twiddles(n, xp.device))
 
 
 # The plain ops carry every CFAR variant, so Kernel D's plain version is
@@ -118,7 +159,8 @@ def chain_gos(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
     if takes_plain_path(xp, "chain_gos"):
         return chain_gos_reference(xp, rt, fft_cfg, cfar_cfg)
     return _chain_kernel("chain_gos", "rsp_chain_gos",
-                         gos_registers(rt, cfar_cfg, n), xp, fft_cfg)
+                         gos_registers(rt, cfar_cfg, n), xp, fft_cfg,
+                         _twiddles(n, xp.device))
 
 
 def _full_size(rt: RuntimeConfig, fft_cfg: FftConfig) -> bool:

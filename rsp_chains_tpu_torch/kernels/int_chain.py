@@ -4,7 +4,10 @@
   CA/GO/SO CFAR. Replaces
   ``rsp_chains_tpu/kernels/int_chain_pallas.py::fused_chain_int`` (:441,
   ``pallas_call`` :512); CUDA source ``csrc/chain_int.cu`` with
-  ``csrc/int_front.cuh``.
+  ``csrc/int_front.cuh``. Two routes, chosen here by N alone: frames of
+  ``ROW_SIZES`` take the row plan in registers (``csrc/int_rows.cuh``,
+  entry ``rsp_chain_int_rows``), longer ones a frame a block (entry
+  ``rsp_chain_int``); both give the same integers.
 * Kernel G, ``chain_int_gos``: the same front + an integer CA / GOS tail
   muxed by the algorithm register. Replaces
   ``int_chain_pallas.py::fused_chain_int_gos`` (:552, ``pallas_call`` :622);
@@ -42,10 +45,12 @@ from ..ops.bit_true import (
 )
 from ..ops.cfar import CfarOutput, effective_algorithm, window_registers
 from .cfar import MAX_LOG2_W, PAD, check_window_bounds, entry, launch, takes_plain_path
+from .chain import ROW_RADICES
 
 MAX_LOG2N = 14    # the kernels' frame bound: ~195 KiB of shared memory at
                   # N = 16384, under the H100's 227 KiB a block
 OPS_CHUNK = 512   # frames per call of the integer ops (their window stacks)
+ROW_SIZES = tuple(ROW_RADICES)   # Kernel F's row-plan route
 
 
 class IntRegs(ctypes.Structure):
@@ -166,7 +171,9 @@ def chain_int(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
     _check_operands("chain_int", xp.shape[-1], rt, fft_cfg, cfar_cfg, False)
     if takes_plain_path(xp, "chain_int"):
         return chain_int_reference(xp, rt, fft_cfg, cfar_cfg)
-    return _int_kernel("chain_int", "rsp_chain_int", xp, rt, fft_cfg, cfar_cfg)
+    symbol = ("rsp_chain_int_rows" if xp.shape[-1] in ROW_SIZES
+              else "rsp_chain_int")
+    return _int_kernel("chain_int", symbol, xp, rt, fft_cfg, cfar_cfg)
 
 
 def chain_int_gos(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,

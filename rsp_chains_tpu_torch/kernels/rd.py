@@ -19,12 +19,13 @@ Doppler row after it: the two are linear maps on different axes and commute
 (matched filter, then Doppler). A wrapper launches its kernel for CUDA
 tensors and uses the plain version (``*_reference``) only for CPU tensors.
 
-The row launch's FFT pair runs in passes of radix 16 (``ROW_RADICES``) and
-never reverses bits: its forward transform leaves the spectrum in
-digit-reversed order (``row_order``), H is multiplied in that order
-(``h_rows``), and the inverse brings the row back to natural order. The
-host builds both constants, and the passes' twiddles
-(``rd_row_twiddles``), once per size, replica and device.
+The row launch's FFT pair runs in passes of radix 16 (``ROW_RADICES``,
+``csrc/row_fft.cuh``, shared with Kernel A) and never reverses bits: its
+forward transform leaves the spectrum in digit-reversed order
+(``row_order``), H is multiplied in that order (``h_rows``), and the inverse
+brings the row back to natural order. The host builds H once per size,
+replica and device; the passes' twiddles (``row_twiddles``) come from
+``kernels/chain.py``.
 """
 
 from __future__ import annotations
@@ -49,7 +50,9 @@ from .cfar import (
     PAD, CaRegs, ca_registers, call_entry, check_cuda_operands, entry,
     fused_tail_kind, mag_cfar_reference, takes_plain_path,
 )
-from .chain import FUSABLE_SIZES as RD_SIZES, _twiddles
+from .chain import (
+    FUSABLE_SIZES as RD_SIZES, _row_twiddles, _twiddles, row_order,
+)
 
 class Cfar2dRegs(ctypes.Structure):
     """``RspCfar2dRegs`` of ``csrc/cfar_2d.cuh``, field for field."""
@@ -102,43 +105,6 @@ def _check_rd(name: str, xp: C, cfg: ChainConfig, taps) -> tuple[int, int]:
     return p, n
 
 
-# the row launch's passes for each frame size: radix 16 at strides N / 16
-# and N / 256, then radix N / 256 over contiguous groups (csrc/rd_front.cuh)
-ROW_RADICES = {256: (16, 16), 512: (16, 16, 2), 1024: (16, 16, 4)}
-
-
-def row_order(n: int) -> np.ndarray:
-    """The spectrum bin at each cell of the row launch's forward output: a
-    decimation in frequency in place leaves bin ``R1 * k' + p // (n / R1)``
-    at cell p, k' the bin at cell ``p % (n / R1)`` of the sub-transform over
-    the remaining radices."""
-    def bin_at(p: int, radices: tuple, size: int) -> int:
-        if not radices:
-            return 0
-        r, sub = radices[0], size // radices[0]
-        return r * bin_at(p % sub, radices[1:], sub) + p // sub
-
-    return np.array([bin_at(p, ROW_RADICES[n], n) for p in range(n)])
-
-
-def row_twiddles(n: int) -> np.ndarray:
-    """The row launch's pass twiddles as [n + 16 * (n // 256), 2] float32
-    (cos, sin), computed in float64: W_n^(m k) at [k * n/16 + m] (pass 1,
-    m < n/16), then W_(n/16)^(m k) at [n + k * (n // 256) + m] (pass 2,
-    m < n/256); k < 16. Pass 3's are all 1."""
-    t, m2 = n // 16, n // 256
-    k = np.arange(16)[:, None]
-    w = np.concatenate([
-        np.exp(-2j * np.pi * k * np.arange(t) / n).ravel(),
-        np.exp(-2j * np.pi * k * np.arange(m2) / t).ravel()])
-    return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
-
-
-@functools.lru_cache(maxsize=None)
-def rd_row_twiddles(n: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(row_twiddles(n)).to(device)
-
-
 @functools.lru_cache(maxsize=64)
 def _permuted(h: torch.Tensor) -> torch.Tensor:
     n = h.shape[-1]
@@ -166,7 +132,7 @@ def _front_args(p: int, n: int, taps, cfg: ChainConfig,
     dop_cfg = cfg.doppler or DopplerConfig()
     return (_twiddles(p, device).data_ptr(),
             _window(p, dop_cfg.window, device).data_ptr(),
-            rd_row_twiddles(n, device).data_ptr(),
+            _row_twiddles(n, device).data_ptr(),
             h_rows(taps, n, mf_cfg.normalize, device).data_ptr(),
             p.bit_length() - 1, n.bit_length() - 1,
             doppler_scale(p, dop_cfg.scaling), int(dop_cfg.fft_shift))

@@ -107,6 +107,87 @@ def test_mag_cfar_matches_reference(dev, n, regs):
     _assert_close(got, kcfar.mag_cfar_reference(spec, rt, cfg.cfar))
 
 
+# the 13-register sweep of tests/test_no_recompile.py, over the CA
+# elaboration (CASH and the GOS algorithm degrade to CA there)
+SWEEP13 = [
+    dict(), dict(fft_size=256), dict(fft_size=64), dict(mag_mode=1),
+    dict(mag_mode=3, log_or_linear=0, threshold_scaler=2.0),
+    dict(cfar_mode=1), dict(cfar_mode=2),
+    dict(cfar_mode=3, sub_window_size=8),
+    dict(cfar_algorithm=1, index_lagg=20, index_lead=20),
+    dict(ref_window_size=16, guard_window_size=2, div_sum=4),
+    dict(ref_window_size=64, guard_window_size=8, div_sum=6),
+    dict(peak_grouping=1), dict(threshold_scaler=10.0),
+]
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024])
+@pytest.mark.parametrize("regs", SWEEP13)
+def test_chain_ca_over_the_register_sweep(dev, n, regs):
+    cfg = _cfg(n)
+    x = _iq((19, n), dev, seed=2)
+    rt = rsp.RuntimeConfig.make(**{"ref_window_size": 32,
+                                   "guard_window_size": 4, **regs})
+    before = _build.LAUNCHES["chain_ca"]
+    got = kchain.chain_ca(x, rt, cfg.fft, cfg.cfar)
+    assert _build.LAUNCHES["chain_ca"] == before + 1
+    _assert_close(got, kchain.chain_ca_reference(x, rt, cfg.fft, cfg.cfar))
+    assert _build.BUILDS == 1
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024])
+@pytest.mark.parametrize("w", [1, 2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("mode, grouping", [(0, 0), (1, 1), (2, 0)])
+def test_chain_ca_over_windows_and_modes(dev, n, w, mode, grouping):
+    """Every run width of the CA tail (C = min(w, 16)); w = 1 with guard 0
+    is a raw register write past make()'s rules."""
+    cfg = _cfg(n)
+    x = _iq((11, n), dev, seed=w)
+    rt = rsp.RuntimeConfig.make(
+        ref_window_size=max(w, 2), guard_window_size=min(w // 4 + 1, 8),
+        div_sum=w.bit_length() - 1, cfar_mode=mode, peak_grouping=grouping)
+    if w == 1:
+        rt = dataclasses.replace(rt, ref_window_size=1, guard_window_size=0)
+    _assert_close(kchain.chain_ca(x, rt, cfg.fft, cfg.cfar),
+                  kchain.chain_ca_reference(x, rt, cfg.fft, cfg.cfar))
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024])
+@pytest.mark.parametrize("lo, hi", [(5, 117), (37, -21), (16, 33), (0, 200)])
+@pytest.mark.parametrize("mag_mode", [0, 2, 3])
+def test_chain_ca_active_range_inside_a_run(dev, n, lo, hi, mag_mode):
+    """Kernel A with an active range whose edges fall inside a thread's
+    16-cell run, against the plain tail over the same range."""
+    cfg = _cfg(n)
+    hi = hi % n
+    x = _iq((9, n), dev, seed=lo)
+    rt = rsp.RuntimeConfig.make(fft_size=n, mag_mode=mag_mode, peak_grouping=1,
+                                **({} if mag_mode != 3 else dict(
+                                    log_or_linear=0, threshold_scaler=2.0)))
+    regs = kcfar.ca_registers(rt, cfg.cfar, n, lo, hi)
+    got = kchain._chain_kernel("chain_ca", "rsp_chain_ca", regs, x, cfg.fft,
+                               kchain._row_twiddles(n, dev))
+    want = kcfar.mag_cfar_reference(fft_op(x, None, cfg.fft), rt, cfg.cfar,
+                                    active_lo=lo, active_hi=hi)
+    _assert_close(got, want)
+    assert not got.peaks[:, :lo].any() and not got.peaks[:, hi:].any()
+    assert not got.threshold[:, :lo].any() and not got.threshold[:, hi:].any()
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024])
+@pytest.mark.parametrize("frames", [1, 3, 17, 65])
+def test_chain_ca_part_filled_block(dev, n, frames):
+    """Frame counts that leave the last block (256 / (N / 16) frames) part
+    filled: the absent frames take part in the barriers and write nothing."""
+    cfg = _cfg(n)
+    x = _iq((frames + 1, n), dev, seed=frames)
+    rt = rsp.RuntimeConfig.make(fft_size=n)
+    sub = rsp.C(x.re[:frames], x.im[:frames])
+    got = kchain.chain_ca(sub, rt, cfg.fft, cfg.cfar)
+    assert got.threshold.shape == (frames, n)
+    _assert_close(got, kchain.chain_ca_reference(sub, rt, cfg.fft, cfg.cfar))
+
+
 def test_chain_over_register_writes_builds_once(dev):
     cfg = _cfg(1024)
     chain = rsp.fft_mag_cfar_chain(cfg)
@@ -471,10 +552,12 @@ INT_REGS = [
     dict(ref_window_size=2, guard_window_size=1, div_sum=40),
 ]
 INT_FFTS = [dict(), dict(expand=(0, 2, 3, 5, 6, 7, 8)), dict(lsb=(1, 4)),
-            dict(expand=(1,), lsb=(0, 2))]
+            dict(expand=(1,), lsb=(0, 2)), dict(expand=(0, 1, 2, 3)),
+            dict(expand=(4, 5, 8, 9), lsb=(0, 3, 6, 7))]
+INT_SIZES = [256, 512, 1024, 2048, 4096, 8192, 16384]
 
 
-@pytest.mark.parametrize("n", [256, 1024, 4096, 16384])
+@pytest.mark.parametrize("n", INT_SIZES)
 @pytest.mark.parametrize("regs", INT_REGS)
 @pytest.mark.parametrize("fft", INT_FFTS)
 def test_chain_int_matches_reference(dev, n, regs, fft):
@@ -486,6 +569,31 @@ def test_chain_int_matches_reference(dev, n, regs, fft):
     got = kint.chain_int(x, rt, fft_cfg, cfg.cfar)
     assert _build.LAUNCHES["chain_int"] == before + 1
     _assert_exact(got, kint.chain_int_reference(x, rt, fft_cfg, cfg.cfar))
+
+
+@pytest.mark.parametrize("n", INT_SIZES)
+def test_chain_int_routes_by_frame_size(dev, n, monkeypatch):
+    """Frames of 256-1024 take the row-plan entry, longer ones the
+    frame-per-block entry; full-scale frames through four expanding stages
+    saturate the square sums, exact on both routes."""
+    symbols = []
+    kernel = kint._int_kernel
+
+    def record(name, symbol, *args):
+        symbols.append(symbol)
+        return kernel(name, symbol, *args)
+
+    monkeypatch.setattr(kint, "_int_kernel", record)
+    cfg = _cfg(n)
+    fft_cfg = _fft(n, expand=(0, 1, 2, 3))
+    x = _int_iq((6, n), dev, seed=n + 5)
+    rt = rsp.RuntimeConfig.make(fft_size=n, mag_mode=1, div_sum=0,
+                                peak_grouping=1)
+    got = kint.chain_int(x, rt, fft_cfg, cfg.cfar)
+    assert symbols == ["rsp_chain_int_rows" if n <= 1024 else "rsp_chain_int"]
+    want = kint.chain_int_reference(x, rt, fft_cfg, cfg.cfar)
+    _assert_exact(got, want)
+    assert bool((want.threshold < 0).any())   # the sums and products wrap
 
 
 INT_GOS_REGS = [

@@ -254,6 +254,52 @@ def test_build_is_named_by_its_sources_and_needs_nvcc(monkeypatch, tmp_path):
         _build._nvcc()
 
 
+# a stand-in for nvcc: a compile writes its arguments into its object and
+# reports them, a link concatenates its objects; -DFAIL fails
+_FAKE_NVCC = """#!/bin/sh
+out=""; prev=""
+for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done
+case " $* " in
+  *" -DFAIL "*) echo "error: $*" >&2; exit 1 ;;
+  *" -shared "*) shift 3; cat "$@" > "$out" ;;
+  *) echo "$*" > "$out"; echo "compiled $*" ;;
+esac
+"""
+
+
+def test_variant_builds_take_their_flags_and_stay_apart(monkeypatch, tmp_path):
+    """``variants`` builds a library of the sources given for each set of -D
+    flags, every source with its build's flags, each library from its own
+    objects and with its own compiler report, named apart from the others
+    and from the full library; a built variant is not built again, a failed
+    compile raises with the compiler's message, and ``BUILDS`` counts none."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.ctypes, "CDLL", str)
+    builds = _build.BUILDS
+    sources = ("chain_ca.cu", "chain_int.cu")
+    flags = [("-DRSP_ROWS_BLOCKS=1",), ("-DRSP_ROWS_BLOCKS=3",)]
+    libs = _build.variants(sources, flags)
+    assert libs == [str(_build.library_path(sources, f)) for f in flags]
+    assert len({*libs, str(_build.library_path())}) == 3
+    for (flag,), lib in zip(flags, libs):
+        objs = open(lib).read().splitlines()
+        assert len(objs) == 2 and all(flag in o for o in objs)
+        assert [o.split()[-1].rsplit("/", 1)[-1] for o in objs] == list(sources)
+        log = _build.build_log(sources, (flag,))
+        assert log.count("compiled") == 2 and log.count(flag) == 2
+    assert _build.build_log() == ""
+    monkeypatch.setattr(_build, "_nvcc", lambda: pytest.fail("rebuilt"))
+    assert _build.variants(sources, flags[:1]) == libs[:1]
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    with pytest.raises(RuntimeError, match="(?s)nvcc failed.*error: .*-DFAIL"):
+        _build.variants(sources, [("-DFAIL",)])
+    assert _build.BUILDS == builds
+
+
 # ---- the GOSCA kernels (C: mag_gos_cfar, D: chain_gos) ----
 
 def _gos_cfgs(n, variant=R.CfarVariant.GOSCA, cash=True, wmax=16):

@@ -1,6 +1,7 @@
 """The host constants of Kernel H's range-row launch (``csrc/rd_front.cuh``)
-on the CPU: the digit-reversal order ``row_order``, the pass twiddles
-``row_twiddles`` and the permuted H ``h_rows`` of ``kernels/rd.py``, through
+on the CPU: the digit-reversal order ``row_order`` and the pass twiddles
+``row_twiddles`` of ``kernels/chain.py`` (the row plan, ``csrc/row_fft.cuh``)
+and the permuted H ``h_rows`` of ``kernels/rd.py``, through
 a numpy emulation of the kernel's pass plan (each radix-16 / radix-2 / radix-4
 pass on the cells it reads, the twiddle table applied after it; the inverse
 as each pass's adjoint in reverse order).
@@ -20,6 +21,7 @@ import rsp_chains_tpu as R
 from rsp_chains_tpu.ops.matched_filter import matched_filter as mf_jax
 
 import rsp_chains_tpu_torch as T
+from rsp_chains_tpu_torch.kernels import chain as kchain
 from rsp_chains_tpu_torch.kernels import rd as krd
 from rsp_chains_tpu_torch.ops.matched_filter import matched_filter
 
@@ -27,7 +29,7 @@ SIZES = [256, 512, 1024]
 
 
 def _tables(n):
-    tw = krd.row_twiddles(n).astype(np.float64)
+    tw = kchain.row_twiddles(n).astype(np.float64)
     w = tw[:, 0] + 1j * tw[:, 1]
     t, m2 = n // 16, n // 256
     return w[:n].reshape(16, t), w[n:].reshape(16, m2)
@@ -67,13 +69,13 @@ def _rows(n, seed=0, frames=3):
 
 @pytest.mark.parametrize("n", SIZES)
 def test_row_order_is_a_permutation_of_the_bins(n):
-    order = krd.row_order(n)
+    order = kchain.row_order(n)
     assert order.shape == (n,)
     np.testing.assert_array_equal(np.sort(order), np.arange(n))
     # cell p = d1 (n / R1) + d2 (n / R1 R2) + ... holds bin d1 + R1 d2 + ...
     want = np.zeros(n, np.int64)
     p, size, weight = np.arange(n), n, 1
-    for r in krd.ROW_RADICES[n]:
+    for r in kchain.ROW_RADICES[n]:
         size //= r
         want += weight * (p // size)
         p, weight = p % size, weight * r
@@ -82,7 +84,7 @@ def test_row_order_is_a_permutation_of_the_bins(n):
 
 @pytest.mark.parametrize("n", SIZES)
 def test_row_twiddles_are_the_passes_roots(n):
-    tw = krd.row_twiddles(n)
+    tw = kchain.row_twiddles(n)
     t, m2 = n // 16, n // 256
     assert tw.dtype == np.float32 and tw.shape == (n + 16 * m2, 2)
     k, m = np.meshgrid(np.arange(16), np.arange(t), indexing="ij")
@@ -96,7 +98,7 @@ def test_row_twiddles_are_the_passes_roots(n):
 def test_the_pass_plan_is_the_fft_in_row_order(n):
     x = _rows(n, seed=n)
     got = _forward(x, n)
-    want = np.fft.fft(x, axis=-1)[:, krd.row_order(n)]
+    want = np.fft.fft(x, axis=-1)[:, kchain.row_order(n)]
     assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
     back = _inverse(got, n) / n
     assert np.abs(back - x).max() / np.abs(x).max() < 1e-5
