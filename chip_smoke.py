@@ -20,7 +20,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (``bench.py:541-563``, ``:760-790``), Kernel I (``pc_ca``) on 16 x 256
    frames of 4096 (``bench.py:565-591``). The plain GOS versions gather every
    cell's window (4.3 GB a side at this shape), so they run, and are compared
-   and timed, over 8-channel chunks;
+   and timed, over 8-channel chunks. Kernel B is also held at the frame
+   sizes of ``B_SIZES`` (rows several a block, and tiles of 4096 cells), each
+   over the whole frame, an active range inside it and its magnitude given,
+   and Kernel I at every size of ``PC_SIZES`` (256 ... 4096) under three
+   register settings;
 4. drives the public entry points over register sweeps, each path with the
    launch counters set to 0 just before it and read just after, each point
    asserting the kernel (or the integer ops) it took: ``fft_mag_cfar_chain``
@@ -47,6 +51,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    cards or more the sharded paths run once more on a mesh of distinct
    cards; with one, a line says so;
 5. times each kernel and its plain version, and the chains, with CUDA events;
+   times Kernel B at its points (the headline, the fft_size 512 spectrum, a
+   GOSCA elaboration's CA registers, the range-Doppler map, the given
+   magnitude of the 1 x 4 mesh) and frame sizes, and Kernel I at its frame
+   sizes (``tail_times``: by CUDA events, on the card alone with the host's
+   launches queued ahead, and the host time a call);
    times Kernel F's row plan beside its frame-per-block kernel on the same
    frames of 1024 (the bench's stage flags, and seven expanding stages);
    times Kernels C, D and G at the windows 8, 32 and 64, each also with the
@@ -54,11 +63,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    place (the difference is the selection's own time); times, as a
    yardstick for Kernel H's range rows and used nowhere in the port,
    ``torch.fft.fft`` + ``torch.fft.ifft`` over the same 16,384 rows of
-   1024; prints the registers, spills and stack frames of A's and F's row
-   kernels, C, D, G and the range-row kernels from the ``-Xptxas -v``
-   report; builds A's and F's two sources once more at 1, 2, 3 and 4
-   blocks an SM (``-DRSP_ROWS_BLOCKS``), each build checked against the
-   plain versions, with its registers, and timed;
+   1024; prints the registers, spills and stack frames of A's, I's and F's
+   row kernels, B, C, D, G and the range-row kernels from the ``-Xptxas -v``
+   report; builds A's, F's, I's and B's four sources once more at 1, 2, 3
+   and 4 blocks an SM (``-DRSP_ROWS_BLOCKS``, ``-DRSP_B_BLOCKS``), each
+   build checked against the plain versions (I at N = 4096), with its
+   registers, and timed;
 6. profiles the full-size kernel path, the plain path, the shrunken-size
    kernel path, the default chain's GOS path, the bit-true GOSCA chain's
    GOS path, the range-Doppler kernel path (``rd_ca``), its map
@@ -67,6 +77,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    busiest device kernels (for the range-Doppler kernels, the Doppler and
    range-row launches apart), and the device memory a call allocates beyond
    its inputs.
+
+``python3 chip_smoke.py --compare`` only builds the kernels and prints
+``tail_times``: a copy of the script in another checkout of the port (an
+earlier commit), run in the same call, times that checkout's kernels on the
+same card.
 
 Bars: for the float kernels the bench's (``bench.py:404``), max|dthr| /
 max|thr| < 1e-4 and peak flips <= 1e-5 of the cells; for the wire kernel the
@@ -140,8 +155,12 @@ INT_OPS_PER_S = FP32_OPS_PER_S / 2
 # side's two 1.15 products, each two multiply-adds (the rounding constant
 # the first one's addend) and a shift (2 x 3)
 INT_BUTTERFLY_OPS = 8 + 2 + 1 + 6
-# the blocks an SM at which Kernels A's and F's row kernels are compared
+# the blocks an SM at which Kernels A's, F's and I's row kernels and B are
+# compared
 ROW_BLOCKS = (1, 2, 3, 4)
+# the card's spin while the host queues the calls ``device_ms`` times: ~60 ms
+# at the H100's clock, above 30 calls of a few launches' host time
+SPIN_CYCLES = 100_000_000
 WIRE_LSB_MAX, WIRE_LSB_MEAN = 2, 0.05
 # register settings of the default elaboration's sweep, each written over
 # GOS_REGS, with the kernel each must launch; the third item is written raw,
@@ -216,6 +235,15 @@ WIRE_SWEEP = [
 # its registers; the 2-D detector's elaboration and registers are the bench's
 # (bench.py:771-775)
 PC_SHAPE = (16, 256, 4096)
+# Kernel I's frame sizes (kernels/chain.py PC_SIZES), each held and timed on
+# the samples of PC_SHAPE
+PC_SIZES = (256, 512, 1024, 2048, 4096)
+# Kernel B's frame sizes beside the headline's 1024: rows several a block
+# (128, 384 with idle threads, 1152, 4096: one a block) and tiles of 4096
+# (8320: two seams and a last tile of 128 cells; 57856, the longest frame
+# the earlier one-frame-a-block kernel took), each held and timed on the
+# samples of SHAPE
+B_SIZES = (128, 384, 1152, 4096, 8320, 57856)
 PC_REGS = dict(fft_size=4096, ref_window_size=32, guard_window_size=4,
                threshold_scaler=8.0)
 RD2_CFG = dict(max_ref_range=16, max_guard_range=4, max_ref_doppler=8,
@@ -360,6 +388,44 @@ def time_ms(fn, calls: int = 30, warm: int = 5) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
+def device_ms(fn, calls: int = 30) -> float:
+    """Median ms a call of ``fn`` on the card alone: the card spins
+    (``torch.cuda._sleep``) while the host queues ``calls`` calls, each
+    bracketed by CUDA events, so no host time falls between the events."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    events = []
+    for _ in range(calls):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def host_call_ms(fn, calls: int = 30) -> float:
+    """Host ms per call of ``fn``: ``calls`` calls back to back by the host
+    clock, not waiting for the card (the launches queue), after warm-up."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t) / calls * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
 def ptxas_report(log: str, kernels) -> dict:
     """Registers, spill bytes (stores, loads) and stack frame bytes of each
     entry function of the ``-Xptxas -v`` report ``log`` whose mangled name
@@ -432,13 +498,128 @@ def profile(fn, label: str, stages, calls: int = 20, top: int = 5) -> None:
               f"{e.count // calls} a call")
 
 
-def row_blocks(card: str, x, xi, rt, cfg) -> None:
-    """Kernels A's and F's row kernels built with each of ``ROW_BLOCKS``
-    blocks an SM in their launch bounds (``-DRSP_ROWS_BLOCKS``; only their
-    two sources, all builds at once), each held against its plain version on
-    the frames ``x`` (A at the bench bar) and ``xi`` (F equal), with its
+def b_frame_sizes(dev, samples: int) -> dict:
+    """Seeded spectra for Kernel B at each of ``B_SIZES``: samples // N
+    frames of N."""
+    import torch
+
+    from rsp_chains_tpu_torch import C
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    return {n: C(*(torch.randn(samples // n, n, device=dev, generator=gen)
+                   for _ in range(2))) for n in B_SIZES}
+
+
+def pc_config(n: int):
+    """The pulse-compression elaboration at frames of ``n``: the bench's
+    128-tap matched filter and a CA CFAR (``bench.py:565-591``)."""
+    import rsp_chains_tpu_torch as rsp
+
+    return rsp.ChainConfig(
+        fft=rsp.FftConfig(max_size=n),
+        matched_filter=rsp.MatchedFilterConfig(num_taps=128, fft_size=n),
+        cfar=rsp.CfarConfig(max_ref_window=64, max_fft_size=n,
+                            variant=rsp.CfarVariant.CA, include_cash=False))
+
+
+def pc_frame_sizes(dev, taps, samples: int) -> dict:
+    """Kernel I's operands at each of ``PC_SIZES``: (seeded IQ frames,
+    samples // N of N, their elaboration, H)."""
+    import torch
+
+    from rsp_chains_tpu_torch import C
+    from rsp_chains_tpu_torch.ops.matched_filter import h_planes
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    return {n: (C(*(torch.randn(samples // n, n, device=dev, generator=gen)
+                    * 100 for _ in range(2))), pc_config(n),
+                h_planes(taps, n, True, dev)) for n in PC_SIZES}
+
+
+def tail_times(dev) -> dict:
+    """Kernel B at its points and frame sizes and Kernel I at its frame
+    sizes, with Kernel A at the headline beside them as a yardstick; each
+    on seeded inputs of SHAPE's samples: (median ms by CUDA events, on the
+    card alone (``device_ms``), host ms a call). Only entry points that every version of the port
+    since its sharded chains has are called, so ``--compare`` runs it on an
+    earlier checkout too."""
+    import numpy as np
+    import torch
+
+    import rsp_chains_tpu_torch as rsp
+    from rsp_chains_tpu_torch import parallel as SP
+    from rsp_chains_tpu_torch.kernels import cfar as kcfar
+    from rsp_chains_tpu_torch.kernels import chain as kchain
+    from rsp_chains_tpu_torch.kernels import halo as khalo
+    from rsp_chains_tpu_torch.kernels import rd as krd
+    from rsp_chains_tpu_torch.ops.fft import fft_op
+
+    cfg = rsp.ChainConfig(
+        fft=rsp.FftConfig(max_size=SHAPE[-1]),
+        cfar=rsp.CfarConfig(max_ref_window=64, variant=rsp.CfarVariant.CA,
+                            include_cash=False, max_fft_size=SHAPE[-1]))
+    gcfg = rsp.ChainConfig()
+    rng = np.random.RandomState(SEED)
+    x = rsp.as_pair(rng.randn(*SHAPE).astype(np.float32)
+                    + 1j * rng.randn(*SHAPE).astype(np.float32), device=dev)
+    rt = rsp.RuntimeConfig.make(**HEADLINE)
+    small = rt.merge_regs(fft_size=512)
+    samples = x.re.numel()
+    spec = fft_op(x, None, cfg.fft)
+    spec512 = fft_op(x, small.log2_fft_size, cfg.fft)
+    taps = rsp.golden.lfm_chirp(128, 0.0, 0.25)
+    rd_cfg = rsp.ChainConfig(
+        fft=cfg.fft, cfar=cfg.cfar,
+        matched_filter=rsp.MatchedFilterConfig(num_taps=128,
+                                               fft_size=SHAPE[-1]),
+        doppler=rsp.DopplerConfig(num_pulses=SHAPE[1]))
+    rd_map = krd.fused_rd_chain(x, rt, taps, rd_cfg, emit="map")
+    row = SP.scatter(spec, SP.make_mesh(1, 4, [dev] * 4), channels=False,
+                     ranges=True)[0]
+    exts = khalo.mag_extend(row, 128, rt.mag_mode)
+    scfg = dataclasses.replace(cfg.cfar, use_rdma_halo=True)
+    shards = ((128, 512), (0, 512), (0, 512), (0, 384))
+    points = {
+        "chain_ca at 64x256x1024 (yardstick)":
+            lambda: kchain.chain_ca(x, rt, cfg.fft, cfg.cfar),
+        "mag_cfar at 64x256x1024, headline":
+            lambda: kcfar.mag_cfar(spec, rt, cfg.cfar),
+        "mag_cfar at 64x256x1024, fft_size 512 spectrum":
+            lambda: kcfar.mag_cfar(spec512, small, cfg.cfar),
+        "mag_cfar at 64x256x1024, GOSCA elaboration, CA registers":
+            lambda: kcfar.fused_mag_gos_dispatch(spec, rt, gcfg.cfar),
+        "mag_cfar at 64x256x1024, the range-Doppler map":
+            lambda: kcfar.mag_cfar(rd_map, rt, cfg.cfar),
+        "mag_cfar on the given magnitude, 1x4 mesh of 16384 x 512 "
+        "extended blocks": lambda: [
+            kcfar.mag_cfar(e, rt, scfg, active_lo=lo, active_hi=hi,
+                           mag_given=True)
+            for e, (lo, hi) in zip(exts, shards)],
+    }
+    for n, v in b_frame_sizes(dev, samples).items():
+        points[f"mag_cfar at {v.shape[0]}x{n}, headline registers"] = (
+            lambda v=v, r=rt.merge_regs(cfar_fft_size=n):
+            kcfar.mag_cfar(v, r, cfg.cfar))
+    for n, (v, c, h) in pc_frame_sizes(dev, taps, samples).items():
+        points[f"pc_ca at {v.shape[0]}x{n}, bench registers"] = (
+            lambda v=v, c=c, h=h, r=rsp.RuntimeConfig.make(
+                **{**PC_REGS, "fft_size": n}):
+            kchain.pc_ca(v, r, c.fft, c.cfar, h))
+    return {name: (time_ms(fn), device_ms(fn), host_call_ms(fn))
+            for name, fn in points.items()}
+
+
+def row_blocks(card: str, x, xi, spec, rt, cfg, x2, rt_pc, pc_cfg,
+               h_pc) -> None:
+    """Kernels A's, F's and I's row kernels and Kernel B built with each of
+    ``ROW_BLOCKS`` blocks an SM in their launch bounds
+    (``-DRSP_ROWS_BLOCKS``, ``-DRSP_B_BLOCKS``; only their four sources, all
+    builds at once), each held against its plain version on the frames
+    ``x`` (A at the bench bar), ``xi`` (F equal), ``x2`` (I at N = 4096, the
+    bench bar) and the spectrum ``spec`` (B, the bench bar), with its
     registers, spills and stack, and timed in turns (``ROW_BLOCKS``, then
-    reversed), each time the mean of its two."""
+    reversed), each time the mean of its two. The entries are called
+    directly, so the times hold little host work."""
     import ctypes
 
     import torch
@@ -450,13 +631,14 @@ def row_blocks(card: str, x, xi, rt, cfg) -> None:
     from rsp_chains_tpu_torch.kernels import int_chain as kint
     from rsp_chains_tpu_torch.ops.fft import fft_scale
 
-    sources = ("chain_ca.cu", "chain_int.cu")
-    flags = [(f"-DRSP_ROWS_BLOCKS={b}",) for b in ROW_BLOCKS]
+    sources = ("chain_ca.cu", "chain_int.cu", "pc_ca.cu", "mag_cfar.cu")
+    flags = [(f"-DRSP_ROWS_BLOCKS={b}", f"-DRSP_B_BLOCKS={b}")
+             for b in ROW_BLOCKS]
     t0 = time.perf_counter()
     libs = _build.variants(sources, flags)
-    print(f"build of {' and '.join(sources)} at {ROW_BLOCKS} blocks an SM: "
+    print(f"build of {', '.join(sources)} at {ROW_BLOCKS} blocks an SM: "
           f"{time.perf_counter() - t0:.2f} s")
-    dev, n = x.re.device, x.shape[-1]
+    dev, n, n2 = x.re.device, x.shape[-1], x2.shape[-1]
     P, I = ctypes.c_void_p, ctypes.c_int
     kernels = {  # name: (entry, kernel argument types, frames, dtype, args)
         "chain_ca": ("rsp_chain_ca", [P, I, ctypes.c_float, kcfar.CaRegs], x,
@@ -469,6 +651,15 @@ def row_blocks(card: str, x, xi, rt, cfg) -> None:
                           kint._int_twiddles(n, dev).data_ptr(),
                           n.bit_length() - 1, *kint.fft_masks(cfg.fft, n),
                           kint.int_registers(rt, cfg.cfar, n))),
+        "pc_ca": ("rsp_pc_ca", [P, P, I, ctypes.c_float, kcfar.CaRegs], x2,
+                  torch.float32, (
+                      kchain._row_twiddles(n2, dev).data_ptr(),
+                      kchain._permuted(h_pc).data_ptr(), n2.bit_length() - 1,
+                      fft_scale(n2, pc_cfg.fft),
+                      kcfar.ca_registers(rt_pc, pc_cfg.cfar, n2))),
+        "mag_cfar": ("rsp_mag_cfar", [I, kcfar.CaRegs, I], spec,
+                     torch.float32, (n, kcfar.ca_registers(rt, cfg.cfar, n),
+                                     0)),
     }
 
     def runner(lib, entry, types, v, dtype, args):
@@ -480,7 +671,7 @@ def row_blocks(card: str, x, xi, rt, cfg) -> None:
             thr = torch.empty(v.shape, dtype=dtype, device=dev)
             pk = torch.empty(v.shape, dtype=torch.uint8, device=dev)
             rc = fn(v.re.data_ptr(), v.im.data_ptr(), thr.data_ptr(),
-                    pk.data_ptr(), v.re.numel() // n,
+                    pk.data_ptr(), v.re.numel() // v.shape[-1],
                     torch.cuda.current_stream(dev).cuda_stream, *args)
             if rc != 0:
                 raise RuntimeError(f"{entry} launch failed with CUDA error {rc}")
@@ -489,6 +680,8 @@ def row_blocks(card: str, x, xi, rt, cfg) -> None:
 
     want_a = kchain.chain_ca_reference(x, rt, cfg.fft, cfg.cfar)
     want_f = kint.chain_int_reference(xi, rt, cfg.fft, cfg.cfar)
+    want_i = kchain.pc_ca_reference(x2, rt_pc, pc_cfg.fft, pc_cfg.cfar, h_pc)
+    want_b = kcfar.mag_cfar_reference(spec, rt, cfg.cfar)
     runs = {}
     for b, f, lib in zip(ROW_BLOCKS, flags, libs):
         for name, (entry, types, v, dtype, args) in kernels.items():
@@ -496,20 +689,48 @@ def row_blocks(card: str, x, xi, rt, cfg) -> None:
         compare(runs["chain_ca", b](), want_a, f"chain_ca, {b} blocks an SM")
         compare_exact(runs["chain_int", b](), want_f,
                       f"chain_int, {b} blocks an SM")
+        compare(runs["pc_ca", b](), want_i, f"pc_ca, {b} blocks an SM")
+        compare(runs["mag_cfar", b](), want_b, f"mag_cfar, {b} blocks an SM")
         for name, (regs, st, ld, stack) in ptxas_report(
                 _build.build_log(sources, f), ("rsp_chain_ca_rows_kernel",
-                                               "rsp_chain_int_rows_kernel")
+                                               "rsp_chain_int_rows_kernel",
+                                               "rsp_pc_ca_rows_kernel",
+                                               "rsp_mag_cfar_kernel")
         ).items():
             print(f"{b} blocks an SM: ptxas -v {name}: {regs} registers, {st} "
                   f"B spill stores, {ld} B spill loads, {stack} B stack frame")
-    for name in kernels:
+    for name, (_, _, v, _, _) in kernels.items():
         ms = {b: [] for b in ROW_BLOCKS}
         for b in ROW_BLOCKS + ROW_BLOCKS[::-1]:
             ms[b].append(time_ms(runs[name, b]))
         for b, (t1, t2) in ms.items():
-            print(f"{name} at {'x'.join(map(str, x.shape))}, {b} blocks an "
+            print(f"{name} at {'x'.join(map(str, v.shape))}, {b} blocks an "
                   f"SM: {(t1 + t2) / 2:.4f} ms ({t1:.4f}, {t2:.4f}); card "
                   f"{card}")
+
+
+def print_tail_times(times: dict, card: str) -> None:
+    for name, (ms, dev_ms, host) in times.items():
+        print(f"tail time: {name}: {ms:.4f} ms by events, {dev_ms:.4f} ms "
+              f"on the card alone, {host:.4f} ms of host time a call; card "
+              f"{card}")
+
+
+def compare_mode(card: str) -> int:
+    """``--compare``: build the kernels of the checkout this script lies in
+    and print ``tail_times``, nothing else; run from two checkouts in one
+    call (a copy of this script in each) it compares their kernels on one
+    card."""
+    import torch
+
+    from rsp_chains_tpu_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - t0:.2f} s "
+          f"({_build.library_path().name})")
+    print_tail_times(tail_times(torch.device("cuda", 0)), card)
+    return 0
 
 
 def main() -> int:
@@ -525,6 +746,11 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card)
+    if sys.argv[1:] == ["--compare"]:
+        return compare_mode(card)
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
 
     import rsp_chains_tpu_torch as rsp
     from rsp_chains_tpu_torch.kernels import _build
@@ -534,6 +760,7 @@ def main() -> int:
     from rsp_chains_tpu_torch.kernels import rd as krd
     from rsp_chains_tpu_torch.ops.cfar import window_registers
     from rsp_chains_tpu_torch.ops.fft import fft_op
+    from rsp_chains_tpu_torch.ops.logmag import logmag
     from rsp_chains_tpu_torch.ops.matched_filter import h_planes
 
     launched = _build.LAUNCHES
@@ -569,6 +796,18 @@ def main() -> int:
     err_b = compare(kcfar.mag_cfar(spec, rt, cfg.cfar),
                     kcfar.mag_cfar_reference(spec, rt, cfg.cfar),
                     "mag_cfar vs mag_cfar_reference")
+    b_frames = b_frame_sizes(dev, samples)
+    for n, v in b_frames.items():
+        rt_n = rsp.RuntimeConfig.make(**{**HEADLINE, "cfar_fft_size": n,
+                                         "peak_grouping": 1})
+        cut = dict(active_lo=37, active_hi=n - 21)
+        for label, u, kw in (
+                ("whole frame", v, {}), ("active 37 .. N - 21", v, cut),
+                ("given magnitude, active 37 .. N - 21",
+                 logmag(v, rt_n.mag_mode), dict(cut, mag_given=True))):
+            compare(kcfar.mag_cfar(u, rt_n, cfg.cfar, **kw),
+                    kcfar.mag_cfar_reference(u, rt_n, cfg.cfar, **kw),
+                    f"mag_cfar N {n} [{label}] vs mag_cfar_reference")
 
     gcfg = rsp.ChainConfig()  # the default elaboration: GOSCA + CASH
     gplain_cfg = dataclasses.replace(
@@ -633,12 +872,7 @@ def main() -> int:
                     krd.fused_rd_2d_chain_reference(x, rt, rt2d, taps, rd_cfg,
                                                     cfg2d),
                     "rd_2d vs fused_rd_2d_chain_reference")
-    pc_cfg = rsp.ChainConfig(
-        fft=rsp.FftConfig(max_size=PC_SHAPE[-1]),
-        matched_filter=rsp.MatchedFilterConfig(num_taps=128,
-                                               fft_size=PC_SHAPE[-1]),
-        cfar=rsp.CfarConfig(max_ref_window=64, max_fft_size=PC_SHAPE[-1],
-                            variant=rsp.CfarVariant.CA, include_cash=False))
+    pc_cfg = pc_config(PC_SHAPE[-1])
     pc_plain_cfg = dataclasses.replace(pc_cfg, cfar=dataclasses.replace(
         pc_cfg.cfar, use_pallas=False))
     pgen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -650,6 +884,15 @@ def main() -> int:
                     kchain.pc_ca_reference(x2, rt_pc, pc_cfg.fft, pc_cfg.cfar,
                                            h_pc),
                     "pc_ca vs pc_ca_reference")
+    pc_frames = pc_frame_sizes(dev, taps, samples)
+    for n, (v, c, h) in pc_frames.items():
+        for name, kw in (("bench", {}), ("GO grouping", dict(
+                cfar_mode=1, peak_grouping=1)), ("LOG2", dict(
+                mag_mode=3, log_or_linear=0, threshold_scaler=2.0))):
+            rt_n = rsp.RuntimeConfig.make(**{**PC_REGS, "fft_size": n, **kw})
+            compare(kchain.pc_ca(v, rt_n, c.fft, c.cfar, h),
+                    kchain.pc_ca_reference(v, rt_n, c.fft, c.cfar, h),
+                    f"pc_ca N {n} [{name}] vs pc_ca_reference")
 
     # ---- the main path through the public entry point ----
     chain = rsp.fft_mag_cfar_chain(cfg)
@@ -1257,6 +1500,9 @@ def main() -> int:
               f"plain path {plain_ms:.4f} ms = "
               f"{samples / plain_ms / 1e3:.1f} Msamples/s; card {card}")
 
+    # ---- Kernel B at its points and frame sizes, Kernel I at its sizes ----
+    print_tail_times(tail_times(dev), card)
+
     # ---- Kernel F's two routes at the headline shape ----
     # the row plan (frames of 256-1024) beside the frame-per-block kernel
     # (entry rsp_chain_int, the route of frames of 2048 and more) called
@@ -1309,6 +1555,8 @@ def main() -> int:
                   f"{ms1 - ms0:.4f} ms; card {card}")
     for name, (regs, st, ld, stack) in ptxas_report(
             _build.build_log(), ("rsp_chain_ca_rows_kernel",
+                                 "rsp_pc_ca_rows_kernel",
+                                 "rsp_mag_cfar_kernel",
                                  "rsp_chain_int_rows_kernel",
                                  "rsp_chain_gos_kernel",
                                  "rsp_mag_gos_cfar_kernel",
@@ -1317,8 +1565,8 @@ def main() -> int:
         print(f"ptxas -v {name}: {regs} registers, {st} B spill stores, "
               f"{ld} B spill loads, {stack} B stack frame")
 
-    # ---- A's and F's row kernels at 1-4 blocks an SM ----
-    row_blocks(card, x, xi16, rt, cfg)
+    # ---- A's, F's, I's row kernels and B at 1-4 blocks an SM ----
+    row_blocks(card, x, xi16, spec, rt, cfg, x2, rt_pc, pc_cfg, h_pc)
 
     # ---- a yardstick for the range rows' FFT pair (never on the path) ----
     rows = torch.complex(x.re, x.im).reshape(-1, SHAPE[-1])
@@ -1423,7 +1671,7 @@ def main() -> int:
                           "rsp_chains_tpu/kernels/int_chain_pallas.py:552"),
         "rd_ca": ("rd_ca.cu", "rsp_chains_tpu/kernels/rd_pallas.py:565"),
         "rd_map": ("rd_ca.cu", "rsp_chains_tpu/kernels/rd_pallas.py:565"),
-        "pc_ca": ("chain_ca.cu", "rsp_chains_tpu/kernels/chain_pallas.py:863"),
+        "pc_ca": ("pc_ca.cu", "rsp_chains_tpu/kernels/chain_pallas.py:863"),
         "rd_2d": ("rd_2d.cu", "rsp_chains_tpu/kernels/rd_pallas.py:442"),
         "halo_exchange": ("halo.cu",
                           "rsp_chains_tpu/kernels/pallas_halo.py:124"),

@@ -1,6 +1,7 @@
 // Shared device functions of the chain kernels: the magnitude mux, the CFAR
-// epilogue pieces (window sums, mode, scaler, peak test) and the CA/GO/SO tail
-// over one frame's magnitude row in shared memory.
+// epilogue pieces (window sums, mode, scaler, peak test) and the direct
+// CA/GO/SO tail over one frame's magnitude row in shared memory (Kernel E's;
+// the run-sum tail of Kernels A, B, H and I is row_fft.cuh's).
 //
 // Replaces, in rsp_chains_tpu/kernels/cfar_pallas.py: `_magnitude` (:112) and
 // the CA tails `_ca_cfar_body` (:153), `_ca_cfar_into` (:228) and
@@ -125,14 +126,4 @@ static __device__ __forceinline__ void rsp_ca_tail_each(
         r.log_or_linear, r.scaler);
     store(i, t, rsp_peak(c, i, t, r.peak_grouping, r.active_lo, r.active_hi));
   }
-}
-
-// rsp_ca_tail_each writing one frame of threshold and peaks.
-static __device__ __forceinline__ void rsp_ca_tail(
-    const float* __restrict__ row, int n, const RspCaRegs& r,
-    float* __restrict__ thr, uint8_t* __restrict__ peaks) {
-  rsp_ca_tail_each(row, n, r, [&](int i, float t, uint8_t pk) {
-    thr[i] = t;
-    peaks[i] = pk;
-  });
 }

@@ -1,47 +1,31 @@
 // Kernel A: the whole CA chain, FFT -> scale -> magnitude -> CA/GO/SO CFAR,
-// over frames of N = 256, 512 or 1024; and Kernel I, a frame-per-block chain
-// with the matched filter's reference spectrum H multiplied in before the
-// magnitude, N up to 4096.
+// over frames of N = 256, 512 or 1024. Kernel I (pc_ca.cu) is this kernel
+// with the matched filter's reference spectrum multiplied in.
 //
-// Kernel A replaces rsp_chains_tpu/kernels/chain_pallas.py::fused_chain_ca
-// (:841, pallas_call :1013; body `_chain_kernel` :688 -> `_chain_core` :541,
-// scale `_fft_scale` :803, registers `_chain_scalars` :817).
-//
-// Kernel I replaces the `h_block` variant of that function (the operand at
-// :997-1006, the product at :608-611): a circular matched filter followed by
-// the range FFT collapses to FFT(x) * H, with H = conj(FFT(pad(taps)))
-// [/ ||taps||], for frames up to N = 4096. H is read in natural bin order (the
-// TPU kernel permuted it into its four-step block order, a layout detail the
-// radix-2 FFT front does not have). It has its own entry, rsp_pc_ca, so its
-// launches and times stay apart from Kernel A's.
+// Replaces rsp_chains_tpu/kernels/chain_pallas.py::fused_chain_ca (:841,
+// pallas_call :1013; body `_chain_kernel` :688 -> `_chain_core` :541, scale
+// `_fft_scale` :803, registers `_chain_scalars` :817).
 //
 // Bound on the H100: device memory. The traffic is 13 bytes per complex
-// sample (8 in, 4 + 1 out; I's H is 8 bytes a bin, read from L2 by every
-// frame); a frame's FFT is 5 N log2 N flops, about 4 flops per byte moved at
-// N = 1024, against the card's ~20 fp32 flops per byte of bandwidth. The
-// spectrum never leaves the chip.
+// sample (8 in, 4 + 1 out); a frame's FFT is 5 N log2 N flops, about 4 flops
+// per byte moved at N = 1024, against the card's ~20 fp32 flops per byte of
+// bandwidth. The spectrum never leaves the chip.
 //
-// * Kernel A (rsp_chain_ca_rows_kernel<N>) takes the row plan of
-//   row_fft.cuh: N / 16 threads a frame, 256 / (N / 16) frames a block,
-//   16 cells a thread, the forward transform in radix-16 passes in
-//   registers with 1 or 2 barriers (`rsp_row_forward`). The spectrum comes
-//   out digit-reversed: each thread scales its 16 bins, takes their
-//   magnitude and scatters it to its natural bin of the frame's padded
-//   magnitude row (`rsp_row_bin`; 2-way bank conflicts at most, a store a
-//   cell), and the CA tail sums the windows of 16 contiguous cells a thread
-//   by runs (`rsp_ca_row`), about w + 16 shared reads a side a run against
-//   2w a cell. Shared memory: the FFT planes and the magnitude rows, 55,296
-//   bytes a block at N = 1024 (above the 48 KB default, so it opts in).
-//   Three blocks an SM (RSP_ROWS_BLOCKS; 80 registers, no spills): of 1, 2,
-//   3 and 4 it ran fastest (chip_smoke.py `row_blocks`).
-// * Kernel I (rsp_pc_ca_kernel) holds one frame a block in shared memory (2 N
-//   floats and its magnitude row of N + 2*RSP_PAD, 50,176 bytes at N = 4096):
-//   the radix-2 FFT of fft_radix2.cuh, a __syncthreads() a stage, and the
-//   direct window sums of `rsp_ca_tail`.
+// Design (rsp_chain_ca_rows_kernel<N>): the row plan of row_fft.cuh, N / 16
+// threads a frame, 256 / (N / 16) frames a block, 16 cells a thread, the
+// forward transform in radix-16 passes in registers with 1 or 2 barriers
+// (`rsp_row_forward`). The spectrum comes out digit-reversed: each thread
+// scales its 16 bins, takes their magnitude and scatters it to its natural
+// bin of the frame's padded magnitude row (`rsp_row_bin`; 2-way bank
+// conflicts at most, a store a cell), and the CA tail sums the windows of 16
+// contiguous cells a thread by runs (`rsp_ca_row`), about w + 16 shared reads
+// a side a run against 2w a cell. Shared memory: the FFT planes and the
+// magnitude rows, 55,296 bytes a block at N = 1024 (above the 48 KB default,
+// so it opts in). Three blocks an SM (RSP_ROWS_BLOCKS; 80 registers, no
+// spills): of 1, 2, 3 and 4 it ran fastest (chip_smoke.py `row_blocks`).
 #include <cuda_runtime.h>
 
 #include "ca_cfar.cuh"
-#include "fft_radix2.cuh"
 #include "row_fft.cuh"
 
 // Kernel A over `frames` frames of kN cells. tw: the pass twiddles of
@@ -120,54 +104,4 @@ extern "C" int rsp_chain_ca(const float* re, const float* im, float* thr,
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-// Kernel I, one frame a block: the scaled spectrum times h ([2, n], re and
-// im planes).
-__global__ void __launch_bounds__(RSP_THREADS)
-rsp_pc_ca_kernel(const float* __restrict__ re, const float* __restrict__ im,
-                 const float2* __restrict__ tw, const float* __restrict__ h,
-                 float* __restrict__ thr, uint8_t* __restrict__ peaks,
-                 int log2n, float scale, RspCaRegs r) {
-  extern __shared__ float smem[];
-  const int n = 1 << log2n;
-  float* xr = smem;
-  float* xi = smem + n;
-  float* row = smem + 2 * n;  // [RSP_PAD | n | RSP_PAD]
-  const size_t base = (size_t)blockIdx.x * n;
-
-  for (int j = threadIdx.x; j < RSP_PAD; j += blockDim.x) {
-    row[j] = 0.0f;
-    row[RSP_PAD + n + j] = 0.0f;
-  }
-  rsp_fft_radix2(re + base, im + base, tw, xr, xi, log2n);
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    float m = 0.0f;
-    if (i >= r.active_lo && i < r.active_hi) {
-      const float sr = xr[i] * scale, si = xi[i] * scale;
-      const float hr = h[i], hi = h[n + i];
-      m = rsp_magnitude(fmaf(sr, hr, -si * hi), fmaf(sr, hi, si * hr),
-                        r.mag_mode);
-    }
-    row[RSP_PAD + i] = m;
-  }
-  __syncthreads();
-  rsp_ca_tail(row, n, r, thr + base, peaks + base);
-}
-
-// As rsp_chain_ca, with tw: float32 [2^(log2n-1), 2] (cos, sin) of
-// exp(-2 pi i k / 2^log2n), h: float32 [2, 2^log2n] (re, im planes) and
-// 8 <= log2n <= 12.
-extern "C" int rsp_pc_ca(const float* re, const float* im, float* thr,
-                         uint8_t* peaks, int frames, cudaStream_t stream,
-                         const float* tw, const float* h, int log2n,
-                         float scale, RspCaRegs regs) {
-  const size_t smem = (size_t)(3 * (1 << log2n) + 2 * RSP_PAD) * sizeof(float);
-  const cudaError_t e = rsp_opt_in(rsp_pc_ca_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  rsp_pc_ca_kernel<<<frames, RSP_THREADS, smem, stream>>>(
-      re, im, reinterpret_cast<const float2*>(tw), h, thr, peaks, log2n, scale,
-      regs);
-  return (int)cudaGetLastError();
 }

@@ -1,20 +1,22 @@
 // The register-resident row FFT and the run-sum CA tail, shared by the range
-// rows of Kernels H and J (rd_front.cuh), Kernel A (chain_ca.cu) and, in
-// integers, Kernel F (int_rows.cuh).
+// rows of Kernels H and J (rd_front.cuh), Kernels A (chain_ca.cu) and I
+// (pc_ca.cu), in integers Kernel F (int_rows.cuh), and the tail alone by
+// Kernel B (mag_cfar.cu).
 //
-// * The plan of a row of N = 256, 512 or 1024 cells (RspRowPlan): N / 16
-//   threads a row, 256 / (N / 16) rows a block, 16 cells a thread. Each pass
-//   is radix-16 DFTs in registers (four radix-2 stages, constant twiddles,
-//   `rsp_dft`) on cells at a stride, then the pass twiddles, float64-rounded
-//   host tables read through __ldg (kernels/chain.py `row_twiddles`; no fast
-//   math: ~4e-7 relative, as a radix-2 FFT): N = 16 x 16 (x 2 or x 4). The
-//   forward transform (`rsp_row_forward`) is a decimation in frequency,
-//   natural order in and digit-reversed order out, in place
-//   (kernels/chain.py `row_order`; `rsp_row_bin`). The first pass reads
-//   device memory, coalesced; between passes the cells go through shared
-//   memory (an XOR swizzle, p ^ ((p >> 4) & 31), and a row stride of N + 16
-//   floats keep every access free of bank conflicts): 1 barrier at N = 256,
-//   2 at 512 and 1024, against log2 N radix-2 stages.
+// * The plan of a row of N = 256, 512, 1024, 2048 or 4096 cells
+//   (RspRowPlan): N / 16 threads a row (at most 256), 256 / (N / 16) rows a
+//   block (one at N = 4096), 16 cells a thread. Each pass is radix-16 DFTs in
+//   registers (four radix-2 stages, constant twiddles, `rsp_dft`) on cells
+//   at a stride, then the pass twiddles, float64-rounded host tables read
+//   through __ldg (kernels/chain.py `row_twiddles`; no fast math: ~4e-7
+//   relative, as a radix-2 FFT): N = 16 x 16 (x 2, 4, 8 or 16). The forward
+//   transform (`rsp_row_forward`) is a decimation in frequency, natural
+//   order in and digit-reversed order out, in place (kernels/chain.py
+//   `row_order`; `rsp_row_bin`). The first pass reads device memory,
+//   coalesced; between passes the cells go through shared memory (an XOR
+//   swizzle, p ^ ((p >> 4) & 31), and a row stride of N + 16 floats keep
+//   every access free of bank conflicts): 1 barrier at N = 256, 2 above,
+//   against log2 N radix-2 stages.
 // * The CA tail (`rsp_ca_runs`): a thread takes 16 contiguous cells of the
 //   magnitude row and sums each side's windows with adds only, the cells
 //   every window of the run holds once and the edges as running sums (about
@@ -30,24 +32,33 @@
 
 #include "ca_cfar.cuh"
 
-// Blocks an SM in the launch bounds of Kernels A's and F's row kernels
-// (rsp_chain_ca_rows_kernel, rsp_chain_int_rows_kernel); chip_smoke.py
-// builds and times them at 1 to 4 (`row_blocks`).
+// Blocks an SM in the launch bounds of Kernels A's, F's and I's row kernels
+// (rsp_chain_ca_rows_kernel, rsp_chain_int_rows_kernel,
+// rsp_pc_ca_rows_kernel); chip_smoke.py builds and times them at 1 to 4
+// (`row_blocks`).
 #ifndef RSP_ROWS_BLOCKS
 #define RSP_ROWS_BLOCKS 3
 #endif
 
+// Floats of a CA magnitude row of `len` cells, [RSP_PAD | len | RSP_PAD]
+// padded one float in 16 (`rsp_mag_slot`).
+static __host__ __device__ constexpr int rsp_mag_floats(int len) {
+  return (len + 2 * RSP_PAD) / 16 * 17 + 16;
+}
+
 // The plan of a row of kN cells: kT threads a row, kRows rows a block,
 // passes of radix 16 at strides kT and kM2, then (kM2 > 1) one of radix kM2
-// at stride 1; kS floats a row plane of the FFT buffer, kMagS a CA
-// magnitude row ([RSP_PAD | kN | RSP_PAD], padded one float in 16).
+// (2, 4, 8 or 16) at stride 1; kS floats a row plane of the FFT buffer,
+// kMagS a CA magnitude row.
 template <int kN>
 struct RspRowPlan {
+  static_assert(kN >= 256 && kN <= 4096 && (kN & (kN - 1)) == 0,
+                "the row plan takes N = 256 ... 4096");
   static constexpr int kT = kN / 16;
   static constexpr int kRows = RSP_THREADS / kT;
   static constexpr int kM2 = kN / 256;
   static constexpr int kS = kN + 16;
-  static constexpr int kMagS = (kN + 2 * RSP_PAD) / 16 * 17 + 16;
+  static constexpr int kMagS = rsp_mag_floats(kN);
 };
 
 // Where cell p of a row plane lives: within each 32 floats, XOR-swizzled by
@@ -107,7 +118,7 @@ static __device__ __forceinline__ constexpr int rsp_brev(int k) {
   return v;
 }
 
-// In-register DFT of R points (R = 2, 4 or 16) in slots xr/xi[0 .. R),
+// In-register DFT of R points (R = 2, 4, 8 or 16) in slots xr/xi[0 .. R),
 // natural order in and out: sum_r x[r] exp(-+2 pi i r k / R) (+ for kConj),
 // by radix-2 decimation-in-frequency stages. Every index is a constant once
 // unrolled, so the slots stay registers and the final reordering is free.
@@ -187,7 +198,8 @@ static __device__ __forceinline__ void rsp_get(const V* pr, const V* pi,
 // the spectrum's cell 16 m + j (bin rsp_row_bin(16 m + j)) out. pr / pi:
 // the row's planes of the FFT buffer. Every thread of the block calls it:
 // it holds 1 (kN = 256) or 2 barriers, and the last pass reads the planes
-// after the last of them.
+// after the last of them. Pass 3 is 16 / kM2 DFTs of radix kM2 (8 at
+// kN = 2048, one of 16 at 4096).
 template <int kN>
 static __device__ __forceinline__ void rsp_row_forward(
     const float* yre, const float* yim, size_t base, bool live, int m,
@@ -256,12 +268,12 @@ static __device__ __forceinline__ void rsp_run_sums(const V* rw, int a, int b,
   }
 }
 
-// The CA/GO/SO tail of cells i0 .. i0 + 15 of one row, as rsp_ca_tail
-// computes it (PARTIAL edges, the mode, the scaler, the active mask, peak
-// grouping): `rw` the row's magnitudes at rsp_mag_slot(RSP_PAD + cell),
-// zero outside the active range and the frame; C = min(w, 16) windows of
-// each side at a time. Writes thr[i0 .. i0 + 16) and peaks[i0 .. i0 + 16),
-// both 16-byte aligned.
+// The CA/GO/SO tail of cells i0 .. i0 + 15 of one row, as rsp_ca_tail_each
+// (ca_cfar.cuh) computes it (PARTIAL edges, the mode, the scaler, the
+// active mask, peak grouping): `rw` the row's magnitudes at
+// rsp_mag_slot(RSP_PAD + cell), zero outside the active range and the
+// frame; C = min(w, 16) windows of each side at a time. Writes
+// thr[i0 .. i0 + 16) and peaks[i0 .. i0 + 16), both 16-byte aligned.
 template <int C>
 static __device__ __forceinline__ void rsp_ca_runs(
     const float* rw, int i0, const RspCaRegs& r, float* __restrict__ thr,

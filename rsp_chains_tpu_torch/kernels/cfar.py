@@ -2,8 +2,10 @@
 
 * Kernel B, ``mag_cfar``: magnitude + CA/GO/SO CFAR. Replaces
   ``rsp_chains_tpu/kernels/cfar_pallas.py::fused_mag_cfar`` (:489,
-  ``pallas_call`` :555); CUDA source ``csrc/mag_cfar.cu`` with
-  ``csrc/ca_cfar.cuh``. It moves 13 bytes per complex sample: 8 in, 4 + 1 out.
+  ``pallas_call`` :555); CUDA source ``csrc/mag_cfar.cu`` with the run-sum
+  tail of ``csrc/row_fft.cuh``, 16 contiguous cells a thread, rows of up to
+  4096 cells several a block and longer rows in tiles. It moves 13 bytes per
+  complex sample: 8 in, 4 + 1 out.
 * Kernel C, ``mag_gos_cfar``: magnitude + GOS / GOSCA / CASH CFAR. Replaces
   ``cfar_pallas.py::fused_mag_gos_cfar`` (:1593, ``pallas_call`` :1716); CUDA
   source ``csrc/mag_gos_cfar.cu`` with ``csrc/gos_cfar.cuh``.
@@ -248,6 +250,14 @@ def _tail_input(spectrum, mag_given: bool) -> C:
     return C(spectrum, None)
 
 
+def _aligned(x: C) -> C:
+    """``x`` with each contiguous plane 16-byte aligned, as the float4 loads
+    of Kernel B need: a plane that is not (a view at an odd offset) is
+    copied."""
+    return C(*(t.clone() if t is not None and t.is_contiguous()
+               and t.data_ptr() % 16 else t for t in x))
+
+
 def mag_cfar_reference(spectrum: CLike, rt: RuntimeConfig, cfg: CfarConfig,
                        *, active_lo: Optional[int] = None,
                        active_hi: Optional[int] = None,
@@ -274,7 +284,7 @@ def mag_cfar(spectrum: CLike, rt: RuntimeConfig, cfg: CfarConfig, *,
         return mag_cfar_reference(sp.re if mag_given else sp, rt, cfg,
                                   active_lo=active_lo, active_hi=active_hi,
                                   mag_given=mag_given)
-    return launch("mag_cfar", sp,
+    return launch("mag_cfar", _aligned(sp),
                   entry("rsp_mag_cfar", ctypes.c_int, CaRegs, ctypes.c_int),
                   n, ca_registers(rt, cfg, n, active_lo, active_hi),
                   int(mag_given))

@@ -13,18 +13,19 @@ chain stages that honour the FFT-size and CFAR registers.
   CUDA source ``csrc/wire_ca.cu``. It moves 8 bytes per sample, not 13.
 * Kernel I, ``pc_ca``: the collapsed pulse-compression chain, Kernel A with
   the matched filter's reference spectrum H multiplied into the spectrum
-  before the magnitude, frames up to N = 4096. Replaces the ``h_block``
+  before the magnitude, frames of N = 256 ... 4096. Replaces the ``h_block``
   variant of ``chain_pallas.py::fused_chain_ca`` (operand :997-1006); CUDA
-  source ``csrc/chain_ca.cu``, Kernel A's body with the product as a
-  template flag and an entry of its own.
+  source ``csrc/pc_ca.cu``, Kernel A's row kernel with the product and an
+  entry of its own.
 * ``fused_chain_ca_op``, ``fused_chain_gos_op`` and ``fused_wire_chain_op``,
   the ports of ``chain_pallas.py:1402``, ``:1350`` and ``:1432``.
 
-Kernel A runs the register-resident row FFT of ``csrc/row_fft.cuh`` (Kernel
-H's range rows share it): radix-16 passes over ``ROW_RADICES``, the spectrum
-left in digit-reversed order (``row_order``) and each magnitude stored at its
-natural bin, the pass twiddles ``row_twiddles``. Kernels D, E and I keep the
-radix-2 FFT front ``csrc/fft_radix2.cuh``. Each CUDA source says what bounds
+Kernels A and I run the register-resident row FFT of ``csrc/row_fft.cuh``
+(Kernel H's range rows share it): radix-16 passes over ``ROW_RADICES``, the
+spectrum left in digit-reversed order (``row_order``) and each magnitude
+stored at its natural bin, the pass twiddles ``row_twiddles``; I multiplies
+H in that order (``_permuted``). Kernels D and E keep the radix-2 FFT front
+``csrc/fft_radix2.cuh``. Each CUDA source says what bounds
 its kernel on the H100 and how its design answers. The spectrum stays on
 chip: a kernel reads the IQ pair once and writes threshold and peaks once. A
 wrapper launches its kernel for CUDA tensors and uses the plain version
@@ -54,7 +55,8 @@ FUSABLE_SIZES = (256, 512, 1024)
 PC_SIZES = (256, 512, 1024, 2048, 4096)   # Kernel I (presets.py:462-464)
 # the row plan's passes for each frame size (csrc/row_fft.cuh): radix 16 at
 # strides N / 16 and N / 256, then radix N / 256 over contiguous groups
-ROW_RADICES = {256: (16, 16), 512: (16, 16, 2), 1024: (16, 16, 4)}
+ROW_RADICES = {256: (16, 16), 512: (16, 16, 2), 1024: (16, 16, 4),
+               2048: (16, 16, 8), 4096: (16, 16, 16)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,6 +97,15 @@ def row_twiddles(n: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _row_twiddles(n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(row_twiddles(n)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _permuted(h: torch.Tensor) -> torch.Tensor:
+    """The [2, n] planes ``h`` in ``row_order``, for a row kernel that
+    multiplies H into its digit-reversed spectrum; computed once per H
+    tensor (the cache holds it by identity)."""
+    n = h.shape[-1]
+    return h[:, torch.from_numpy(row_order(n)).to(h.device)].contiguous()
 
 
 def _check_fusable(name: str, n: int, fft_cfg: FftConfig) -> None:
@@ -256,7 +267,9 @@ def pc_ca(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
     h_planes``), magnitude and CA-family CFAR at the full elaborated FFT size
     over IQ frames ``[..., N]``, N = ``fft_cfg.max_size`` in {256, ...,
     4096}: the collapsed pulse compression. Returns threshold float32 and
-    peaks bool."""
+    peaks bool. The kernel takes ``h`` in ``row_order``, permuted once per
+    ``h`` tensor (``_permuted``): write a new tensor rather than changing
+    ``h`` in place."""
     xp = as_pair(x)
     n = xp.shape[-1]
     if n != fft_cfg.max_size or n not in PC_SIZES:
@@ -270,12 +283,12 @@ def pc_ca(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
         raise ValueError(f"h must be [2, {n}], got {tuple(h.shape)}")
     if takes_plain_path(xp, "pc_ca"):
         return pc_ca_reference(xp, rt, fft_cfg, cfar_cfg, h)
-    h = h.contiguous()
-    check_cuda_operands(h, dtype=torch.float32)
+    if h.dtype != torch.float32:
+        raise ValueError(f"h must be float32, got {h.dtype}")
     if h.device != xp.device:
         raise ValueError("h must lie on the frames' device")
     fn = entry("rsp_pc_ca", ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                ctypes.c_float, CaRegs)
-    return launch("pc_ca", xp, fn, _twiddles(n, xp.device).data_ptr(),
-                  h.data_ptr(), n.bit_length() - 1, fft_scale(n, fft_cfg),
-                  ca_registers(rt, cfar_cfg, n))
+    return launch("pc_ca", xp, fn, _row_twiddles(n, xp.device).data_ptr(),
+                  _permuted(h).data_ptr(), n.bit_length() - 1,
+                  fft_scale(n, fft_cfg), ca_registers(rt, cfar_cfg, n))

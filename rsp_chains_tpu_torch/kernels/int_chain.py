@@ -45,12 +45,12 @@ from ..ops.bit_true import (
 )
 from ..ops.cfar import CfarOutput, effective_algorithm, window_registers
 from .cfar import MAX_LOG2_W, PAD, check_window_bounds, entry, launch, takes_plain_path
-from .chain import ROW_RADICES
+from .chain import FUSABLE_SIZES
 
 MAX_LOG2N = 14    # the kernels' frame bound: ~195 KiB of shared memory at
                   # N = 16384, under the H100's 227 KiB a block
 OPS_CHUNK = 512   # frames per call of the integer ops (their window stacks)
-ROW_SIZES = tuple(ROW_RADICES)   # Kernel F's row-plan route
+ROW_SIZES = FUSABLE_SIZES   # Kernel F's row-plan route (csrc/chain_int.cu)
 
 
 class IntRegs(ctypes.Structure):

@@ -51,7 +51,7 @@ from .cfar import (
     fused_tail_kind, mag_cfar_reference, takes_plain_path,
 )
 from .chain import (
-    FUSABLE_SIZES as RD_SIZES, _row_twiddles, _twiddles, row_order,
+    FUSABLE_SIZES as RD_SIZES, _permuted, _row_twiddles, _twiddles,
 )
 
 class Cfar2dRegs(ctypes.Structure):
@@ -103,12 +103,6 @@ def _check_rd(name: str, xp: C, cfg: ChainConfig, taps) -> tuple[int, int]:
     if np.asarray(taps).shape[-1] > n:
         raise ValueError(f"{name}: the replica is longer than the frame")
     return p, n
-
-
-@functools.lru_cache(maxsize=64)
-def _permuted(h: torch.Tensor) -> torch.Tensor:
-    n = h.shape[-1]
-    return h[:, torch.from_numpy(row_order(n)).to(h.device)].contiguous()
 
 
 def h_rows(taps, n: int, normalize: bool, device: torch.device) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""The row plans of Kernels A (``chain_ca``) and F (``chain_int``) on the
-CPU, through numpy emulations of the kernels' index plans
+"""The row plans of Kernels A (``chain_ca``), I (``pc_ca``) and F
+(``chain_int``) on the CPU, through numpy emulations of the kernels' index
+plans
 (``csrc/row_fft.cuh``, ``csrc/int_rows.cuh``): which cells each thread holds
 in each pass, the butterflies or DFTs it runs on them, the twiddle it reads,
 where each bin's magnitude lands in the padded row, and the run-sum tail.
@@ -17,8 +18,12 @@ where each bin's magnitude lands in the padded row, and the run-sum tail.
   with the magnitude and the run-sum tail, is within 1e-5 relative Δthr of
   ``chain_ca_reference`` and of the JAX ``fused_chain_ca_op`` (Pallas in
   interpret mode), peaks equal.
+* I: the same plan at N = 256 ... 4096 (pass 3 of radix 8 at 2048 and 16 at
+  4096), the spectrum times H in ``row_order`` (``kernels/chain.py
+  _permuted``), within 1e-5 relative Δthr of ``pc_ca_reference`` and of the
+  JAX ``fused_chain_ca(h_block=...)`` (interpret mode), peaks equal.
 * The shared-memory plan: the exchanges between passes are free of bank
-  conflicts, and the magnitude scatter of A and F at most 2-way (none at
+  conflicts, and the magnitude scatter of A, I and F at most 2-way (none at
   N = 256).
 
 Inputs are seeded numpy arrays."""
@@ -27,8 +32,15 @@ import numpy as np
 import pytest
 import torch
 
+import functools
+
+import jax
+
 import rsp_chains_tpu as R
-from rsp_chains_tpu.kernels.chain_pallas import fused_chain_ca_op
+from rsp_chains_tpu.kernels.chain_pallas import (
+    fused_chain_ca, fused_chain_ca_op,
+)
+from rsp_chains_tpu.kernels.rd_pallas import _h_block
 from rsp_chains_tpu.ops import bit_true as JB
 
 import rsp_chains_tpu_torch as T
@@ -38,8 +50,10 @@ from rsp_chains_tpu_torch.kernels import chain as kchain
 from rsp_chains_tpu_torch.kernels import int_chain as kint
 from rsp_chains_tpu_torch.ops import bit_true as TB
 from rsp_chains_tpu_torch.ops.fft import fft_scale
+from rsp_chains_tpu_torch.ops.matched_filter import h_planes
 
-SIZES = [256, 512, 1024]
+SIZES = list(kchain.PC_SIZES)            # the row plan: A, H and I; I all
+INT_SIZES = list(kint.ROW_SIZES)         # F's row plan
 PAD = kcfar.PAD
 CPU = torch.device("cpu")
 
@@ -153,7 +167,7 @@ def _int_frames(n, seed, amp, frames=3):
             rng.randint(-amp, amp + 1, (frames, n)).astype(np.int32))
 
 
-@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n", INT_SIZES)
 @pytest.mark.parametrize("case", list(INT_FFTS))
 def test_the_integer_pass_plan_is_bit_equal_to_fft_int_op(n, case):
     masks, amp = INT_FFTS[case]
@@ -271,7 +285,7 @@ INT_CHAIN_REGS = [
 ]
 
 
-@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n", INT_SIZES)
 @pytest.mark.parametrize("regs", INT_CHAIN_REGS)
 def test_the_emulated_integer_chain_equals_chain_int_reference(n, regs):
     el, km = _masks(n, expand=(0, 1))
@@ -351,11 +365,17 @@ def _magnitude(re, im, mode):
     return jpl if mode == 2 else np.log2(np.maximum(jpl, np.float32(1e-30)))
 
 
-def _chain_ca(x, n, r, scale):
+def _chain_ca(x, n, r, scale, h_cells=None):
     """Kernel A's plan: the forward passes, the magnitude of each cell,
-    scattered to its natural bin (``rsp_row_bin``), and the run-sum tail."""
+    scattered to its natural bin (``rsp_row_bin``), and the run-sum tail;
+    Kernel I's with ``h_cells``, H's [2, n] planes in the cells' order, which
+    multiply each scaled cell before its magnitude."""
     spec = _forward(x, n) * np.float32(scale)
-    mag_cells = _magnitude(spec.real, spec.imag, r.mag_mode).astype(np.float32)
+    sr, si = spec.real, spec.imag
+    if h_cells is not None:
+        hr, hi = h_cells
+        sr, si = sr * hr - si * hi, sr * hi + si * hr
+    mag_cells = _magnitude(sr, si, r.mag_mode).astype(np.float32)
     k = _row_bin(n)
     active = (k >= r.active_lo) & (k < r.active_hi)
     row = np.zeros(x.shape[:-1] + (PAD + n + PAD,), np.float32)
@@ -391,7 +411,7 @@ CA_REGS = [
 ]
 
 
-@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n", kchain.FUSABLE_SIZES)
 @pytest.mark.parametrize("regs", CA_REGS)
 def test_the_emulated_float_chain_matches_chain_ca_and_jax(n, regs):
     rng = np.random.RandomState(n + len(regs))
@@ -416,6 +436,69 @@ def test_the_emulated_float_chain_matches_chain_ca_and_jax(n, regs):
     thr_j = np.asarray(want_j.threshold)
     assert np.abs(thr - thr_j).max() / np.abs(thr_j).max() < 1e-5
     np.testing.assert_array_equal(pk, np.asarray(want_j.peaks))
+
+
+PC_TAPS = R.golden.lfm_chirp(48, 0.0, 0.25)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_h_block(n):
+    """The JAX ``fused_chain_ca(h_block=...)`` at N = n, jitted once (the
+    registers are traced)."""
+    cfg = R.ChainConfig(
+        fft=R.FftConfig(max_size=n),
+        matched_filter=R.MatchedFilterConfig(num_taps=len(PC_TAPS),
+                                             fft_size=n),
+        cfar=R.CfarConfig(max_ref_window=64, variant=R.CfarVariant.CA,
+                          include_cash=False, max_fft_size=n))
+    hb = _h_block(PC_TAPS, n, True)
+    return jax.jit(lambda x, rt: fused_chain_ca(
+        x, rt, cfg.fft, cfg.cfar, interpret=True, h_block=hb))
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("regs", CA_REGS)
+def test_the_emulated_pulse_compression_rows_match_pc_ca_and_jax(n, regs):
+    """Kernel I's plan: H permuted into ``row_order`` by the wrapper's
+    ``_permuted``, each thread's 16 cells times H before the magnitude.
+    Bar 1e-4 relative Δthr, the bench's: the chirp's H is band-limited, so
+    some bins of the product lie ~1e-3 below the largest, and their LOG2
+    magnitude carries the FFTs' ~1e-7 relative difference a thousandfold."""
+    rng = np.random.RandomState(n + 3 * len(regs))
+    x = ((rng.randn(2, n) + 1j * rng.randn(2, n)) * 0.5).astype(np.complex64)
+    x[:, 30:30 + len(PC_TAPS)] += 3 * PC_TAPS
+    rt_j = R.RuntimeConfig.make(**{"fft_size": n, **regs})
+    rt = runtime_from_reference(rt_j.peek())
+    cfg_t = T.ChainConfig(fft=T.FftConfig(max_size=n), cfar=T.CfarConfig(
+        max_ref_window=64, variant=T.CfarVariant.CA, include_cash=False,
+        max_fft_size=n))
+    h = h_planes(PC_TAPS, n, True, CPU)
+    h_cells = kchain._permuted(h)
+    assert kchain._permuted(h) is h_cells       # once per H tensor
+    np.testing.assert_array_equal(h_cells.numpy(),
+                                  h.numpy()[:, kchain.row_order(n)])
+    r = kcfar.ca_registers(rt, cfg_t.cfar, n)
+    thr, pk = _chain_ca(x, n, r, fft_scale(n, cfg_t.fft), h_cells.numpy())
+    want = kchain.pc_ca_reference(T.as_pair(x), rt, cfg_t.fft, cfg_t.cfar, h)
+    scale = np.abs(want.threshold.numpy()).max()
+    assert np.abs(thr - want.threshold.numpy()).max() / scale < 1e-4
+    np.testing.assert_array_equal(pk, want.peaks.numpy())
+    want_j = _jax_h_block(n)(R.as_pair(x), rt_j)
+    thr_j = np.asarray(want_j.threshold)
+    assert np.abs(thr - thr_j).max() / np.abs(thr_j).max() < 1e-4
+    np.testing.assert_array_equal(pk, np.asarray(want_j.peaks))
+
+
+def test_the_row_routes_of_a_f_and_h_keep_their_sizes():
+    """The row plan reaches N = 4096 for Kernel I; Kernels A's and H's gates
+    and Kernel F's row route stay at 256 ... 1024, as the JAX package's."""
+    assert kchain.FUSABLE_SIZES == (256, 512, 1024)
+    assert kint.ROW_SIZES == (256, 512, 1024)
+    from rsp_chains_tpu_torch.kernels import rd as krd
+    assert krd.RD_SIZES == (256, 512, 1024)
+    assert tuple(kchain.ROW_RADICES) == kchain.PC_SIZES
+    for n, radices in kchain.ROW_RADICES.items():
+        assert radices[:2] == (16, 16) and np.prod(radices) == n
 
 
 # ---- the shared-memory plan ----
@@ -454,8 +537,9 @@ def test_the_exchanges_are_conflict_free_and_the_scatters_at_most_two_way(n):
                  lambda m, k: 16 * m + k):
         assert _worst_conflict(
             n, lambda q, m, k: q * ks + _slot(cell(m, k))) == 1
-    bins = {"A": kchain.row_order(n),
-            "F": [_brev(p, n.bit_length() - 1) for p in range(n)]}
+    bins = {"A and I": kchain.row_order(n)}
+    if n in INT_SIZES:
+        bins["F"] = [_brev(p, n.bit_length() - 1) for p in range(n)]
     for name, b in bins.items():
         got = _worst_conflict(
             n, lambda q, m, k: q * kmag + _mag_slot(PAD + b[16 * m + k]))

@@ -94,7 +94,7 @@ def test_chain_ca_matches_reference(dev, n, regs):
     _assert_close(got, kchain.chain_ca_reference(x, rt, cfg.fft, cfg.cfar))
 
 
-@pytest.mark.parametrize("n", [128, 384, 1024, 16384])
+@pytest.mark.parametrize("n", [128, 384, 1024, 4096, 8320, 16384])
 @pytest.mark.parametrize("regs", REGS)
 def test_mag_cfar_matches_reference(dev, n, regs):
     cfg = _cfg(1024)
@@ -104,6 +104,69 @@ def test_mag_cfar_matches_reference(dev, n, regs):
     before = _build.LAUNCHES["mag_cfar"]
     got = kcfar.mag_cfar(spec, rt, cfg.cfar)
     assert _build.LAUNCHES["mag_cfar"] == before + 1
+    _assert_close(got, kcfar.mag_cfar_reference(spec, rt, cfg.cfar))
+
+
+# Kernel B's layouts: rows of N <= 4096 several a block (32 at N = 128, 10
+# at 384 with 16 threads idle, one at 4096), longer rows in tiles of 4096
+# (8320: two seams, a last tile of 128 cells)
+B_SIZES = [128, 384, 1024, 4096, 8320]
+B_CUTS = ["whole frame", "active range", "active range, given"]
+
+
+@pytest.mark.parametrize("n", B_SIZES)
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("log", [False, True])
+@pytest.mark.parametrize("grouping", [0, 1])
+@pytest.mark.parametrize("cut", B_CUTS)
+def test_mag_cfar_rows_and_tiles_match_reference(dev, n, mode, log, grouping,
+                                                 cut):
+    cfg = _cfg(1024)
+    regs = dict(fft_size=1024, cfar_fft_size=n, cfar_mode=mode,
+                peak_grouping=grouping, ref_window_size=16,
+                guard_window_size=2, div_sum=4)
+    if log:
+        regs.update(mag_mode=3, log_or_linear=0, threshold_scaler=2.0)
+    rt = rsp.RuntimeConfig.make(**regs)
+    spec = _iq((7, n), dev, seed=n + mode)
+    kw = {}
+    if cut != "whole frame":
+        kw = dict(active_lo=37, active_hi=n - 21)
+    if cut.endswith("given"):
+        spec = logmag(spec, rt.mag_mode)
+        kw["mag_given"] = True
+    before = dict(_build.LAUNCHES)
+    got = kcfar.mag_cfar(spec, rt, cfg.cfar, **kw)
+    assert _took(before) == {"mag_cfar": 1}
+    _assert_close(got, kcfar.mag_cfar_reference(spec, rt, cfg.cfar, **kw))
+    if kw:
+        assert not got.peaks[..., :37].any()
+        assert not got.peaks[..., n - 21:].any()
+
+
+@pytest.mark.parametrize("n", [57856, 65664])
+def test_mag_cfar_takes_frames_beyond_a_blocks_shared_memory(dev, n):
+    """57,856 cells was the longest frame a whole row in shared memory took;
+    tiles take any length."""
+    cfg = _cfg(1024)
+    rt = rsp.RuntimeConfig.make(fft_size=1024, cfar_fft_size=n,
+                                peak_grouping=1)
+    spec = _iq((2, n), dev, seed=3)
+    got = kcfar.mag_cfar(spec, rt, cfg.cfar)
+    _assert_close(got, kcfar.mag_cfar_reference(spec, rt, cfg.cfar))
+
+
+def test_mag_cfar_takes_a_plane_at_an_unaligned_offset(dev):
+    """Kernel B loads float4: a contiguous plane that starts 4 bytes into
+    its storage goes through an aligned copy and gives the same result."""
+    cfg = _cfg(1024)
+    rt = rsp.RuntimeConfig.make(fft_size=1024, cfar_fft_size=384)
+    spec = _iq((5, 384), dev, seed=4)
+    store = torch.zeros(5 * 384 + 1, device=dev)
+    store[1:] = spec.re.reshape(-1)
+    odd = rsp.C(store[1:].view(5, 384), spec.im)
+    assert odd.re.data_ptr() % 16 and odd.re.is_contiguous()
+    got = kcfar.mag_cfar(odd, rt, cfg.cfar)
     _assert_close(got, kcfar.mag_cfar_reference(spec, rt, cfg.cfar))
 
 
@@ -863,6 +926,36 @@ def test_pc_ca_matches_reference(dev, n, regs):
     got = kchain.pc_ca(x, rt, cfg.fft, cfg.cfar, h)
     assert _build.LAUNCHES["pc_ca"] == before + 1
     _assert_close(got, kchain.pc_ca_reference(x, rt, cfg.fft, cfg.cfar, h))
+
+
+@pytest.mark.parametrize("n", [256, 2048, 4096])
+@pytest.mark.parametrize("frames", [1, 3, 17])
+def test_pc_ca_part_filled_block(dev, n, frames):
+    """Kernel I packs 256 / (N / 16) frames a block: 16 at 256, 2 at 2048,
+    one at 4096; a block's rows past the last frame write nothing."""
+    from rsp_chains_tpu_torch.ops.matched_filter import h_planes
+
+    cfg = _pc_cfg(n)
+    x = _cpi((frames, n), dev, seed=frames)
+    h = h_planes(TAPS, n, True, dev)
+    rt = rsp.RuntimeConfig.make(fft_size=n, peak_grouping=1)
+    got = kchain.pc_ca(x, rt, cfg.fft, cfg.cfar, h)
+    assert got.threshold.shape == (frames, n)
+    _assert_close(got, kchain.pc_ca_reference(x, rt, cfg.fft, cfg.cfar, h))
+
+
+def test_mag_cfar_and_pc_ca_register_writes_build_once(dev):
+    from rsp_chains_tpu_torch.ops.matched_filter import h_planes
+
+    cfg = _pc_cfg(4096)
+    x = _cpi((3, 4096), dev)
+    h = h_planes(TAPS, 4096, True, dev)
+    for regs in SWEEP13:
+        rt = rsp.RuntimeConfig.make(**{"fft_size": 4096, **regs})
+        kchain.pc_ca(x, rt, cfg.fft, cfg.cfar, h)
+        kcfar.mag_cfar(x, rt, cfg.cfar)
+    torch.cuda.synchronize()
+    assert _build.BUILDS == 1
 
 
 RD2_REGS = [
