@@ -23,14 +23,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and timed, over 8-channel chunks. Kernel B is also held at the frame
    sizes of ``B_SIZES`` (rows several a block, and tiles of 4096 cells), each
    over the whole frame, an active range inside it and its magnitude given,
-   and Kernel I at every size of ``PC_SIZES`` (256 ... 4096) under three
-   register settings;
+   Kernel I at every size of ``PC_SIZES`` (256 ... 4096) under three
+   register settings, and Kernel E at N = 256, 512 and 1024 over the wire
+   points that take it;
 4. drives the public entry points over register sweeps, each path with the
    launch counters set to 0 just before it and read just after, each point
    asserting the kernel (or the integer ops) it took: ``fft_mag_cfar_chain``
    for the CA elaboration at the full batch and for the default elaboration,
-   the bit-true CA and bit-true GOSCA elaborations on 8-channel slices and
-   at the integer kernels' frame bound, N = 16384, and
+   the bit-true CA and bit-true GOSCA elaborations on 8-channel slices, at
+   the frame-per-block kernels' bound, N = 16384, and beyond it on the split
+   route of Kernels F and G (``csrc/int_split.cu``): the headline's samples
+   as 512 x 32768, 256 x 65536 and 1 x 2^18 frames and one frame of 2^20,
+   then both integer register sweeps at N = 32768, and
    ``rx_fft_mag_cfar_tx_chain`` for the float CA and the bit-true
    elaborations; it checks the three-tone detections of the float and
    bit-true chains; then ``range_doppler_chain`` (CA at the full batch, GOSCA
@@ -53,9 +57,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 5. times each kernel and its plain version, and the chains, with CUDA events;
    times Kernel B at its points (the headline, the fft_size 512 spectrum, a
    GOSCA elaboration's CA registers, the range-Doppler map, the given
-   magnitude of the 1 x 4 mesh) and frame sizes, and Kernel I at its frame
-   sizes (``tail_times``: by CUDA events, on the card alone with the host's
-   launches queued ahead, and the host time a call);
+   magnitude of the 1 x 4 mesh) and frame sizes, Kernel I at its frame
+   sizes, Kernel E at its two wire points and Kernels A, F, G and H at the
+   headline (``tail_times``: by CUDA events, on the card alone with the
+   host's launches queued ahead, and the host time a call); times the split
+   route of F and G at each of its sizes, with a profile of its head, body
+   and tail launches at 512 x 32768;
    times Kernel F's row plan beside its frame-per-block kernel on the same
    frames of 1024 (the bench's stage flags, and seven expanding stages);
    times Kernels C, D and G at the windows 8, 32 and 64, each also with the
@@ -63,10 +70,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    place (the difference is the selection's own time); times, as a
    yardstick for Kernel H's range rows and used nowhere in the port,
    ``torch.fft.fft`` + ``torch.fft.ifft`` over the same 16,384 rows of
-   1024; prints the registers, spills and stack frames of A's, I's and F's
-   row kernels, B, C, D, G and the range-row kernels from the ``-Xptxas -v``
-   report; builds A's, F's, I's and B's four sources once more at 1, 2, 3
-   and 4 blocks an SM (``-DRSP_ROWS_BLOCKS``, ``-DRSP_B_BLOCKS``), each
+   1024; prints the registers, spills and stack frames of A's, E's, I's and
+   F's row kernels, the split route's kernels, B, C, D, G and the range-row
+   kernels from the ``-Xptxas -v`` report; builds A's, E's, F's, I's and
+   B's five sources once more at 1, 2, 3 and 4 blocks an SM
+   (``-DRSP_ROWS_BLOCKS``, ``-DRSP_E_BLOCKS``, ``-DRSP_B_BLOCKS``), each
    build checked against the plain versions (I at N = 4096), with its
    registers, and timed;
 6. profiles the full-size kernel path, the plain path, the shrunken-size
@@ -90,7 +98,9 @@ within 2 LSB and 0.05 LSB on average, peak flips <= 1e-5; for the integer
 kernels and chains equality; for the complex range-Doppler map
 max|dmap| / max|map| < 1e-4; the sharded paths at the float bar against the
 unsharded chains. Any failed check raises. The last line is the
-JSON device record; the line before it lists the kernels, each with its
+JSON device record; the line before it lists the kernels (the split route
+of F and G as two more entries, ``chain_int_split`` and
+``chain_int_gos_split``, timed at 512 x 32768), each with its
 launches on the main paths, its error, its time, its plain version's, and its
 bound: the larger of its bytes over 3.35 TB/s and the least operations the
 function needs over the H100's rate for their type (the FFT's 5 N log2 N a
@@ -224,6 +234,14 @@ INT_GOS_SWEEP = [
     ("int GOS LUT log2", dict(mag_mode=3, log_or_linear=0,
                               threshold_scaler=2.0), {}, None),
 ]
+# Kernels F and G beyond the frame-per-block kernels' bound (the split route,
+# csrc/int_split.cu), each on the headline's 16,777,216 samples as
+# (frames, N), and beyond the headline's samples one frame of 2^20 (two head
+# launches); the integer register sweeps run at the first N on
+# SPLIT_SWEEP_FRAMES frames
+SPLIT_SHAPES = ((512, 32768), (256, 65536), (1, 1 << 18))
+SPLIT_LONG = 1 << 20
+SPLIT_SWEEP_FRAMES = 16
 # the wire tops: (name, registers over HEADLINE, the kernel it must launch)
 WIRE_SWEEP = [
     ("wire CA", {}, "wire_ca"),
@@ -538,7 +556,8 @@ def pc_frame_sizes(dev, taps, samples: int) -> dict:
 
 def tail_times(dev) -> dict:
     """Kernel B at its points and frame sizes and Kernel I at its frame
-    sizes, with Kernel A at the headline beside them as a yardstick; each
+    sizes, with Kernel A at the headline beside them as a yardstick, Kernel
+    E at the wire points and Kernels F, G and H at the headline; each
     on seeded inputs of SHAPE's samples: (median ms by CUDA events, on the
     card alone (``device_ms``), host ms a call). Only entry points that every version of the port
     since its sharded chains has are called, so ``--compare`` runs it on an
@@ -551,6 +570,7 @@ def tail_times(dev) -> dict:
     from rsp_chains_tpu_torch.kernels import cfar as kcfar
     from rsp_chains_tpu_torch.kernels import chain as kchain
     from rsp_chains_tpu_torch.kernels import halo as khalo
+    from rsp_chains_tpu_torch.kernels import int_chain as kint
     from rsp_chains_tpu_torch.kernels import rd as krd
     from rsp_chains_tpu_torch.ops.fft import fft_op
 
@@ -574,6 +594,15 @@ def tail_times(dev) -> dict:
                                                fft_size=SHAPE[-1]),
         doppler=rsp.DopplerConfig(num_pulses=SHAPE[1]))
     rd_map = krd.fused_rd_chain(x, rt, taps, rd_cfg, emit="map")
+    xq = rsp.C(*(torch.round(torch.clamp(v * 250, -32767, 32767))
+                 for v in (x.re, x.im)))
+    xi = rsp.C(xq.re.to(torch.int32), xq.im.to(torch.int32))
+    words = rsp.packing.pack_iq(xq)
+    bit_true = rsp.FixedPointConfig(enabled=True, width=16, bin_point=0,
+                                    bit_true=True)
+    icfg = dataclasses.replace(cfg, fixed_point=bit_true)
+    igcfg = dataclasses.replace(gcfg, fixed_point=bit_true)
+    grt = rsp.RuntimeConfig.make(**GOS_REGS)
     row = SP.scatter(spec, SP.make_mesh(1, 4, [dev] * 4), channels=False,
                      ranges=True)[0]
     exts = khalo.mag_extend(row, 128, rt.mag_mode)
@@ -582,6 +611,17 @@ def tail_times(dev) -> dict:
     points = {
         "chain_ca at 64x256x1024 (yardstick)":
             lambda: kchain.chain_ca(x, rt, cfg.fft, cfg.cfar),
+        "wire_ca at 64x256x1024, headline":
+            lambda: kchain.wire_ca(words, rt, cfg.fft, cfg.cfar),
+        "wire_ca at 64x256x1024, GO grouping":
+            lambda r=rt.merge_regs(cfar_mode=1, peak_grouping=1):
+            kchain.wire_ca(words, r, cfg.fft, cfg.cfar),
+        "rd_ca at 64x256x1024, headline":
+            lambda: krd.fused_rd_chain(x, rt, taps, rd_cfg),
+        "chain_int at 64x256x1024, headline":
+            lambda: kint.chain_int(xi, rt, icfg.fft, icfg.cfar),
+        "chain_int_gos at 64x256x1024, GOS registers":
+            lambda: kint.chain_int_gos(xi, grt, igcfg.fft, igcfg.cfar),
         "mag_cfar at 64x256x1024, headline":
             lambda: kcfar.mag_cfar(spec, rt, cfg.cfar),
         "mag_cfar at 64x256x1024, fft_size 512 spectrum":
@@ -610,16 +650,17 @@ def tail_times(dev) -> dict:
 
 
 def row_blocks(card: str, x, xi, spec, rt, cfg, x2, rt_pc, pc_cfg,
-               h_pc) -> None:
-    """Kernels A's, F's and I's row kernels and Kernel B built with each of
-    ``ROW_BLOCKS`` blocks an SM in their launch bounds
-    (``-DRSP_ROWS_BLOCKS``, ``-DRSP_B_BLOCKS``; only their four sources, all
+               h_pc, words) -> None:
+    """Kernels A's, E's, F's and I's row kernels and Kernel B built with
+    each of ``ROW_BLOCKS`` blocks an SM in their launch bounds
+    (``-DRSP_ROWS_BLOCKS``, ``-DRSP_B_BLOCKS``; only their five sources, all
     builds at once), each held against its plain version on the frames
-    ``x`` (A at the bench bar), ``xi`` (F equal), ``x2`` (I at N = 4096, the
-    bench bar) and the spectrum ``spec`` (B, the bench bar), with its
-    registers, spills and stack, and timed in turns (``ROW_BLOCKS``, then
-    reversed), each time the mean of its two. The entries are called
-    directly, so the times hold little host work."""
+    ``x`` (A at the bench bar), ``words`` (E at the wire bar), ``xi`` (F
+    equal), ``x2`` (I at N = 4096, the bench bar) and the spectrum ``spec``
+    (B, the bench bar), with its registers, spills and stack, and timed in
+    turns (``ROW_BLOCKS``, then reversed), each time the mean of its two.
+    The entries are called directly, so the times hold little host
+    work."""
     import ctypes
 
     import torch
@@ -631,9 +672,10 @@ def row_blocks(card: str, x, xi, spec, rt, cfg, x2, rt_pc, pc_cfg,
     from rsp_chains_tpu_torch.kernels import int_chain as kint
     from rsp_chains_tpu_torch.ops.fft import fft_scale
 
-    sources = ("chain_ca.cu", "chain_int.cu", "pc_ca.cu", "mag_cfar.cu")
-    flags = [(f"-DRSP_ROWS_BLOCKS={b}", f"-DRSP_B_BLOCKS={b}")
-             for b in ROW_BLOCKS]
+    sources = ("chain_ca.cu", "wire_ca.cu", "chain_int.cu", "pc_ca.cu",
+               "mag_cfar.cu")
+    flags = [(f"-DRSP_ROWS_BLOCKS={b}", f"-DRSP_B_BLOCKS={b}",
+              f"-DRSP_E_BLOCKS={b}") for b in ROW_BLOCKS]
     t0 = time.perf_counter()
     libs = _build.variants(sources, flags)
     print(f"build of {', '.join(sources)} at {ROW_BLOCKS} blocks an SM: "
@@ -678,6 +720,24 @@ def row_blocks(card: str, x, xi, spec, rt, cfg, x2, rt_pc, pc_cfg,
             return CfarOutput(threshold=thr, peaks=pk.view(torch.bool))
         return run
 
+    def wire_runner(lib):
+        fn = lib.rsp_wire_ca
+        fn.argtypes = [P, P, I, P, P, I, ctypes.c_float, kcfar.CaRegs]
+        fn.restype = ctypes.c_int
+        args = (kchain._row_twiddles(n, dev).data_ptr(), n.bit_length() - 1,
+                fft_scale(n, cfg.fft), kcfar.ca_registers(rt, cfg.cfar, n))
+
+        def run():
+            out = torch.empty_like(words)
+            rc = fn(words.data_ptr(), out.data_ptr(), words.numel() // n,
+                    torch.cuda.current_stream(dev).cuda_stream, *args)
+            if rc != 0:
+                raise RuntimeError(f"rsp_wire_ca launch failed with CUDA "
+                                   f"error {rc}")
+            return out
+        return run
+
+    want_e = kchain.wire_ca_reference(words, rt, cfg.fft, cfg.cfar)
     want_a = kchain.chain_ca_reference(x, rt, cfg.fft, cfg.cfar)
     want_f = kint.chain_int_reference(xi, rt, cfg.fft, cfg.cfar)
     want_i = kchain.pc_ca_reference(x2, rt_pc, pc_cfg.fft, pc_cfg.cfar, h_pc)
@@ -686,25 +746,31 @@ def row_blocks(card: str, x, xi, spec, rt, cfg, x2, rt_pc, pc_cfg,
     for b, f, lib in zip(ROW_BLOCKS, flags, libs):
         for name, (entry, types, v, dtype, args) in kernels.items():
             runs[name, b] = runner(lib, entry, types, v, dtype, args)
+        runs["wire_ca", b] = wire_runner(lib)
         compare(runs["chain_ca", b](), want_a, f"chain_ca, {b} blocks an SM")
+        compare_words(runs["wire_ca", b](), want_e, n.bit_length() - 1,
+                      f"wire_ca, {b} blocks an SM")
         compare_exact(runs["chain_int", b](), want_f,
                       f"chain_int, {b} blocks an SM")
         compare(runs["pc_ca", b](), want_i, f"pc_ca, {b} blocks an SM")
         compare(runs["mag_cfar", b](), want_b, f"mag_cfar, {b} blocks an SM")
         for name, (regs, st, ld, stack) in ptxas_report(
                 _build.build_log(sources, f), ("rsp_chain_ca_rows_kernel",
+                                               "rsp_wire_ca_rows_kernel",
                                                "rsp_chain_int_rows_kernel",
                                                "rsp_pc_ca_rows_kernel",
                                                "rsp_mag_cfar_kernel")
         ).items():
             print(f"{b} blocks an SM: ptxas -v {name}: {regs} registers, {st} "
                   f"B spill stores, {ld} B spill loads, {stack} B stack frame")
-    for name, (_, _, v, _, _) in kernels.items():
+    shapes = {name: v.shape for name, (_, _, v, _, _) in kernels.items()}
+    shapes["wire_ca"] = words.shape
+    for name, shape in shapes.items():
         ms = {b: [] for b in ROW_BLOCKS}
         for b in ROW_BLOCKS + ROW_BLOCKS[::-1]:
             ms[b].append(time_ms(runs[name, b]))
         for b, (t1, t2) in ms.items():
-            print(f"{name} at {'x'.join(map(str, v.shape))}, {b} blocks an "
+            print(f"{name} at {'x'.join(map(str, shape))}, {b} blocks an "
                   f"SM: {(t1 + t2) / 2:.4f} ms ({t1:.4f}, {t2:.4f}); card "
                   f"{card}")
 
@@ -836,6 +902,20 @@ def main() -> int:
     err_e = compare_words(kchain.wire_ca(words, rt, cfg.fft, cfg.cfar),
                           kchain.wire_ca_reference(words, rt, cfg.fft, cfg.cfar),
                           bw, "wire_ca vs wire_ca_reference")
+    # Kernel E at each of its frame sizes over the wire points that take it
+    for n in kchain.FUSABLE_SIZES:
+        wn = words.reshape(-1, n)
+        cfg_n = rsp.ChainConfig(fft=rsp.FftConfig(max_size=n), cfar=cfg.cfar)
+        for name, kw, kernel in WIRE_SWEEP:
+            if kernel == "wire_ca":
+                rt_n = rsp.RuntimeConfig.make(**{**HEADLINE, "fft_size": n,
+                                                 **kw})
+                compare_words(
+                    kchain.wire_ca(wn, rt_n, cfg_n.fft, cfg_n.cfar),
+                    kchain.wire_ca_reference(wn, rt_n, cfg_n.fft,
+                                             cfg_n.cfar),
+                    n.bit_length() - 1,
+                    f"wire_ca N {n} [{name}] vs wire_ca_reference")
     bit_true = rsp.FixedPointConfig(enabled=True, width=16, bin_point=0,
                                     bit_true=True)
     icfg = dataclasses.replace(cfg, fixed_point=bit_true)
@@ -1024,10 +1104,13 @@ def main() -> int:
     # ---- the bit-true chains at the integer kernels' frame bound ----
     nb = 1 << kint.MAX_LOG2N
 
-    def at_bound(c):
-        return dataclasses.replace(c, fft=rsp.FftConfig(max_size=nb),
+    def at_size(c, n):
+        return dataclasses.replace(c, fft=rsp.FftConfig(max_size=n),
                                    cfar=dataclasses.replace(c.cfar,
-                                                            max_fft_size=nb))
+                                                            max_fft_size=n))
+
+    def at_bound(c):
+        return at_size(c, nb)
 
     xb = rsp.C(*(torch.randint(-8000, 8001, (GOS_CHUNK, nb), device=dev,
                                generator=gen, dtype=torch.int32)
@@ -1046,6 +1129,68 @@ def main() -> int:
         lambda rt_s, top, plain_top: top(xb, rt_s),
         lambda out, name, rt_s, top, plain_top: compare_exact(
             out, plain_top(xb, rt_s), f"bit-true chain [{name}]"))
+
+    # ---- the bit-true chains beyond it: the split route ----
+    # the headline's integers as frames of each of SPLIT_SHAPES, one frame of
+    # SPLIT_LONG, the CA registers on the CA elaboration (F) and the GOS
+    # registers on the GOSCA + CASH one (G), each through the chain and
+    # exact against the plain chain (the integer ops, chunked by cells)
+    flat = rsp.C(xi16.re.reshape(-1), xi16.im.reshape(-1))
+    split_x = {n: rsp.C(flat.re[:f * n].reshape(f, n),
+                        flat.im[:f * n].reshape(f, n))
+               for f, n in SPLIT_SHAPES}
+    split_x[SPLIT_LONG] = rsp.C(*(torch.randint(
+        -8000, 8001, (1, SPLIT_LONG), device=dev, generator=gen,
+        dtype=torch.int32) for _ in range(2)))
+    split_tops = {}
+    for n in split_x:
+        for tag, top_cfg, plain_base, regs in (
+                ("F", icfg, iplain_cfg, HEADLINE),
+                ("G", igcfg, igplain_cfg, GOS_REGS)):
+            split_tops[tag, n] = (
+                rsp.fft_mag_cfar_chain(at_size(top_cfg, n)),
+                rsp.fft_mag_cfar_chain(at_size(plain_base, n)),
+                rsp.RuntimeConfig.make(**{**regs, "fft_size": n}))
+    split_points = [
+        (f"int {'CA' if tag == 'F' else 'GOS'} "
+         f"{split_x[n].shape[0]}x{n}", rt_n,
+         "chain_int_split" if tag == "F" else "chain_int_gos_split", top,
+         plain_top, split_x[n])
+        for (tag, n), (top, plain_top, rt_n) in split_tops.items()]
+    split_launches = sweep(
+        "bit-true path beyond N 16384", split_points,
+        lambda rt_s, top, plain_top, v: top(v, rt_s),
+        lambda out, name, rt_s, top, plain_top, v: compare_exact(
+            out, plain_top(v, rt_s), f"bit-true chain [{name}]"))
+    # the integer register sweeps at the first N
+    n0 = SPLIT_SHAPES[0][1]
+    xs0 = rsp.C(split_x[n0].re[:SPLIT_SWEEP_FRAMES],
+                split_x[n0].im[:SPLIT_SWEEP_FRAMES])
+    full0 = rsp.C(*(torch.randint(-32767, 32768, xs0.re.shape, device=dev,
+                                  generator=gen, dtype=torch.int32)
+                    for _ in range(2)))
+    (top_f, plain_f, _), (top_g, plain_g, _) = (split_tops["F", n0],
+                                                 split_tops["G", n0])
+    to_split = {"chain_int": "chain_int_split",
+                "chain_int_gos": "chain_int_gos_split"}
+
+    def split_check(out, name, rt_s, top, plain_top, frames):
+        compare_exact(out, plain_top(frames, rt_s),
+                      f"bit-true chain N {n0} [{name}]")
+        if name == "int SQR overflow" and not bool((out.threshold < 0).any()):
+            raise AssertionError("the SQR overflow point did not wrap")
+
+    split_sweep_launches = sweep(
+        f"bit-true register sweeps at N {n0}",
+        [(name, rsp.RuntimeConfig.make(**{**HEADLINE, "fft_size": n0, **kw}),
+          to_split.get(kernel), top_f, plain_f,
+          full0 if name == "int SQR overflow" else xs0)
+         for name, kw, kernel in INT_SWEEP]
+        + [(name, dataclasses.replace(rsp.RuntimeConfig.make(
+            **{**GOS_REGS, "fft_size": n0, **kw}), **raw),
+            to_split.get(kernel), top_g, plain_g, xs0)
+           for name, kw, raw, kernel in INT_GOS_SWEEP],
+        lambda rt_s, top, plain_top, frames: top(frames, rt_s), split_check)
 
     # ---- the wire tops ----
     wchain = rsp.rx_fft_mag_cfar_tx_chain(cfg)
@@ -1369,12 +1514,14 @@ def main() -> int:
     if _build.BUILDS != 1:
         raise AssertionError(f"library built {_build.BUILDS} times, not once")
     paths = (ca_launches, gos_launches, int_launches, int_gos_launches,
-             int_bound_launches, wire_launches, rd_launches, rd_gos_launches,
+             int_bound_launches, split_launches, split_sweep_launches,
+             wire_launches, rd_launches, rd_gos_launches,
              det_launches, pc_launches, rd_wire_launches, rd2_launches,
              rd2_far_launches, *sharded.values())
     launches = {k: sum(p.get(k, 0) for p in paths)
                 for k in ("chain_ca", "mag_cfar", "mag_gos_cfar", "chain_gos",
-                          "wire_ca", "chain_int", "chain_int_gos", "rd_ca",
+                          "wire_ca", "chain_int", "chain_int_gos",
+                          "chain_int_split", "chain_int_gos_split", "rd_ca",
                           "rd_map", "pc_ca", "rd_2d", "halo_exchange",
                           "mag_extend")}
     print(f"main-path launches, all paths: {launches}; library builds: "
@@ -1500,6 +1647,31 @@ def main() -> int:
               f"plain path {plain_ms:.4f} ms = "
               f"{samples / plain_ms / 1e3:.1f} Msamples/s; card {card}")
 
+    # ---- Kernels F and G beyond N 16384: the split route ----
+    # each kernel and its chain by CUDA events, its plain version over 5
+    # calls; the profile splits a call into its head, body and tail launches
+    split_times = {}
+    for (tag, n), (top, plain_top, rt_n) in split_tops.items():
+        v = split_x[n]
+        c = at_size(icfg if tag == "F" else igcfg, n)
+        name, fn, ref = (
+            ("chain_int_split", kint.chain_int, kint.chain_int_reference)
+            if tag == "F" else ("chain_int_gos_split", kint.chain_int_gos,
+                                kint.chain_int_gos_reference))
+        ms = time_ms(lambda: fn(v, rt_n, c.fft, c.cfar))
+        chain_ms = time_ms(lambda: top(v, rt_n))
+        plain_ms = time_ms(lambda: ref(v, rt_n, c.fft, c.cfar), calls=5,
+                           warm=1)
+        split_times[name, n] = (ms, plain_ms)
+        shape = "x".join(map(str, v.shape))
+        print(f"{name} at {shape}: kernel {ms:.4f} ms = "
+              f"{v.re.numel() / ms / 1e3:.1f} Msamples/s, through "
+              f"fft_mag_cfar_chain {chain_ms:.4f} ms, plain {plain_ms:.4f} ms; "
+              f"card {card}")
+        if n == SPLIT_SHAPES[0][1]:
+            profile(lambda: fn(v, rt_n, c.fft, c.cfar), f"{name} at {shape}",
+                    ())
+
     # ---- Kernel B at its points and frame sizes, Kernel I at its sizes ----
     print_tail_times(tail_times(dev), card)
 
@@ -1555,6 +1727,10 @@ def main() -> int:
                   f"{ms1 - ms0:.4f} ms; card {card}")
     for name, (regs, st, ld, stack) in ptxas_report(
             _build.build_log(), ("rsp_chain_ca_rows_kernel",
+                                 "rsp_wire_ca_rows_kernel",
+                                 "rsp_int_split_head_kernel",
+                                 "rsp_int_split_body_kernel",
+                                 "rsp_int_split_tail_kernel",
                                  "rsp_pc_ca_rows_kernel",
                                  "rsp_mag_cfar_kernel",
                                  "rsp_chain_int_rows_kernel",
@@ -1566,7 +1742,7 @@ def main() -> int:
               f"{ld} B spill loads, {stack} B stack frame")
 
     # ---- A's, F's, I's row kernels and B at 1-4 blocks an SM ----
-    row_blocks(card, x, xi16, spec, rt, cfg, x2, rt_pc, pc_cfg, h_pc)
+    row_blocks(card, x, xi16, spec, rt, cfg, x2, rt_pc, pc_cfg, h_pc, words)
 
     # ---- a yardstick for the range rows' FFT pair (never on the path) ----
     rows = torch.complex(x.re, x.im).reshape(-1, SHAPE[-1])
@@ -1620,13 +1796,31 @@ def main() -> int:
         bounds[name] = (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
         print(f"bound {name}: {nbytes / 1e6:.1f} MB over the 4 shards -> "
               f"{bounds[name][0]:.4f} ms")
-    for name, (per, f32, i32, cmp) in work.items():
-        byte_ms = per * samples / HBM_BYTES_PER_S * 1e3
+    # the split route at each size: the function's 13 bytes a sample, the
+    # butterflies of its N/2 log2 N a frame, G's selection over its windows
+    for (name, n), _ in split_times.items():
+        v, rt_n = split_x[n], split_tops["F" if name == "chain_int_split"
+                                         else "G", n][2]
+        frames_s, log2n = v.shape[0], n.bit_length() - 1
+        cmp = 0
+        if name == "chain_int_gos_split":
+            lw, gd = window_registers(rt_n, igcfg.cfar)
+            st = np.arange(-gd - (1 << lw), n + gd + 1)
+            act = min(rt_n.cfar_fft_size, n)
+            nvs = np.clip(np.minimum(st + (1 << lw), act) - np.maximum(st, 0),
+                          0, None)
+            cmp = frames_s * 2 * (1 << lw).bit_length() * int((nvs > 0).sum())
+        work[name, n] = (13, 0, frames_s * n // 2 * log2n * INT_BUTTERFLY_OPS,
+                         cmp, frames_s * n)
+    for name, (per, f32, i32, cmp, *size) in work.items():
+        samples_w = size[0] if size else samples
+        byte_ms = per * samples_w / HBM_BYTES_PER_S * 1e3
         ops_ms = (f32 / FP32_OPS_PER_S + i32 / INT_OPS_PER_S
                   + cmp / CMP_PER_S) * 1e3
         bounds[name] = (max(byte_ms, ops_ms),
                         "bytes" if byte_ms >= ops_ms else "operations")
-        print(f"bound {name}: {per} B/sample -> {byte_ms:.4f} ms; "
+        label = name if isinstance(name, str) else f"{name[0]} at N {name[1]}"
+        print(f"bound {label}: {per} B/sample -> {byte_ms:.4f} ms; "
               f"{f32:.4e} fp32 + {i32:.4e} int32 operations + {cmp:.4e} "
               f"compares -> {ops_ms:.4f} ms")
 
@@ -1651,7 +1845,12 @@ def main() -> int:
     profile(lambda: tail14(placed, rt), "range-sharded tail 1x4, placed", ())
     profile(lambda: khalo.halo_exchange(re_row, 128), "halo_exchange 1x4", ())
 
-    errs = {"chain_ca": err_a, "mag_cfar": err_b, "mag_gos_cfar": err_c,
+    n0_split = SPLIT_SHAPES[0][1]
+    for name in ("chain_int_split", "chain_int_gos_split"):
+        times[name] = (*split_times[name, n0_split], None)
+        bounds[name] = bounds[name, n0_split]
+    errs = {"chain_int_split": 0.0, "chain_int_gos_split": 0.0,
+            "chain_ca": err_a, "mag_cfar": err_b, "mag_gos_cfar": err_c,
             "chain_gos": err_d, "wire_ca": err_e, "chain_int": err_f,
             "chain_int_gos": err_g, "rd_ca": err_h, "rd_map": err_hm,
             "pc_ca": err_i, "rd_2d": err_j, "halo_exchange": 0.0,
@@ -1669,6 +1868,10 @@ def main() -> int:
                       "rsp_chains_tpu/kernels/int_chain_pallas.py:441"),
         "chain_int_gos": ("chain_int_gos.cu",
                           "rsp_chains_tpu/kernels/int_chain_pallas.py:552"),
+        "chain_int_split": ("int_split.cu",
+                            "rsp_chains_tpu/kernels/int_chain_pallas.py:441"),
+        "chain_int_gos_split": (
+            "int_split.cu", "rsp_chains_tpu/kernels/int_chain_pallas.py:552"),
         "rd_ca": ("rd_ca.cu", "rsp_chains_tpu/kernels/rd_pallas.py:565"),
         "rd_map": ("rd_ca.cu", "rsp_chains_tpu/kernels/rd_pallas.py:565"),
         "pc_ca": ("pc_ca.cu", "rsp_chains_tpu/kernels/chain_pallas.py:863"),

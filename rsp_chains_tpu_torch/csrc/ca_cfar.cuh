@@ -1,7 +1,7 @@
-// Shared device functions of the chain kernels: the magnitude mux, the CFAR
-// epilogue pieces (window sums, mode, scaler, peak test) and the direct
-// CA/GO/SO tail over one frame's magnitude row in shared memory (Kernel E's;
-// the run-sum tail of Kernels A, B, H and I is row_fft.cuh's).
+// Shared device functions of the chain kernels: the magnitude mux and the
+// CFAR epilogue pieces (window sums, mode, scaler, peak test) of the GOSCA
+// kernels' tails (gos_cfar.cuh); the run-sum CA tail of Kernels A, B, E, H
+// and I is row_fft.cuh's.
 //
 // Replaces, in rsp_chains_tpu/kernels/cfar_pallas.py: `_magnitude` (:112) and
 // the CA tails `_ca_cfar_body` (:153), `_ca_cfar_into` (:228) and
@@ -101,29 +101,4 @@ static __device__ __forceinline__ uint8_t rsp_peak(const float* c, int i,
     pk = m >= left && m >= right;
   }
   return pk ? 1 : 0;
-}
-
-// `row` points at shared memory holding [RSP_PAD zeros | mag[0..n) | RSP_PAD
-// zeros], with mag already zeroed outside the active range. Every thread of
-// the block takes cells tid, tid + blockDim.x, ...; the caller has
-// synchronised after filling the row. Hands each cell's threshold and peak
-// flag to `store(i, thr, peak)` (0 and 0 outside the active range).
-template <typename Store>
-static __device__ __forceinline__ void rsp_ca_tail_each(
-    const float* __restrict__ row, int n, const RspCaRegs& r, Store store) {
-  const int w = 1 << r.log2w;
-  const float inv_div = ldexpf(1.0f, -r.div_sum);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if (i < r.active_lo || i >= r.active_hi) {
-      store(i, 0.0f, (uint8_t)0);
-      continue;
-    }
-    const float* c = row + RSP_PAD + i;
-    float lag, lead;
-    rsp_ca_sums(c, r.guard, w, lag, lead);
-    const float t = rsp_threshold(
-        rsp_combine(r.cfar_mode, lag * inv_div, lead * inv_div),
-        r.log_or_linear, r.scaler);
-    store(i, t, rsp_peak(c, i, t, r.peak_grouping, r.active_lo, r.active_hi));
-  }
 }

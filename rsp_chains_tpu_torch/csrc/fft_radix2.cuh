@@ -1,8 +1,7 @@
-// The FFT front of the frame-per-block float kernels (D: chain_gos.cu, E:
-// wire_ca.cu, I: chain_ca.cu `rsp_pc_ca_kernel`): an iterative radix-2
-// decimation in time in fp32 FMA over one frame in shared memory. (Kernel A
-// and the range rows of H and J run the register-resident radix-16 passes of
-// row_fft.cuh.)
+// The FFT front of Kernel D (chain_gos.cu), the one frame-per-block float
+// kernel left: an iterative radix-2 decimation in time in fp32 FMA over one
+// frame in shared memory. (Kernels A, E and I and the range rows of H and J
+// run the register-resident radix-16 passes of row_fft.cuh.)
 //
 // Replaces the four-step matmul FFT of rsp_chains_tpu/kernels/chain_pallas.py
 // (`_chain_core` :541 / `_fft_block_order`, with `_dft_blocks` and

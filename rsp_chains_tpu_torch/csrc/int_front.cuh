@@ -129,15 +129,17 @@ static __device__ __forceinline__ void rsp_int_butterfly(
 // natural order) in place; the result is in bit-reversed order. tw[h + j]
 // holds the 1.15 twiddle (cos, sin) of W_{2h}^j, j < h, for every stage's
 // half-block h. Bit s of `expand_mask` marks an expanding stage, of
-// `lsb_mask` a keepLSB stage. Every thread of the block takes part; starts
-// and ends with __syncthreads().
+// `lsb_mask` a keepLSB stage. `grown`: whether a stage before the first one
+// expanded (the sub-frames of int_split.cu, whose first stages ran in an
+// earlier launch). Every thread of the block takes part; starts and ends
+// with __syncthreads().
 static __device__ __forceinline__ void rsp_int_fft(int* xr, int* xi,
                                                    const int2* __restrict__ tw,
                                                    int log2n,
                                                    unsigned expand_mask,
-                                                   unsigned lsb_mask) {
+                                                   unsigned lsb_mask,
+                                                   bool grown = false) {
   const int n = 1 << log2n;
-  bool grown = false;
   __syncthreads();
   for (int s = 0; s < log2n; ++s) {
     const int half = n >> (s + 1);

@@ -1,7 +1,10 @@
 // The register-resident row FFT and the run-sum CA tail, shared by the range
-// rows of Kernels H and J (rd_front.cuh), Kernels A (chain_ca.cu) and I
-// (pc_ca.cu), in integers Kernel F (int_rows.cuh), and the tail alone by
-// Kernel B (mag_cfar.cu).
+// rows of Kernels H and J (rd_front.cuh), Kernels A (chain_ca.cu), E
+// (wire_ca.cu) and I (pc_ca.cu), in integers Kernel F (int_rows.cuh), and
+// the tail alone by Kernel B (mag_cfar.cu). Kernel E gives the forward
+// transform its own pass-1 load (`rsp_row_forward_with`: a functor) and the
+// tail its own store (`rsp_ca_row_with`: a policy); A, B, H and I take the
+// float planes and RspCaStore.
 //
 // * The plan of a row of N = 256, 512, 1024, 2048 or 4096 cells
 //   (RspRowPlan): N / 16 threads a row (at most 256), 256 / (N / 16) rows a
@@ -194,25 +197,21 @@ static __device__ __forceinline__ void rsp_get(const V* pr, const V* pi,
 }
 
 // The forward transform of a row of kN cells by its kT threads (this one
-// m): cells m + kT j of yre / yim at `base` (zeros where !live) in, slot j =
-// the spectrum's cell 16 m + j (bin rsp_row_bin(16 m + j)) out. pr / pi:
-// the row's planes of the FFT buffer. Every thread of the block calls it:
-// it holds 1 (kN = 256) or 2 barriers, and the last pass reads the planes
-// after the last of them. Pass 3 is 16 / kM2 DFTs of radix kM2 (8 at
-// kN = 2048, one of 16 at 4096).
-template <int kN>
-static __device__ __forceinline__ void rsp_row_forward(
-    const float* yre, const float* yim, size_t base, bool live, int m,
-    const float2* __restrict__ tw, float* pr, float* pi, float* xr,
-    float* xi) {
+// m): `load(j, re, im)` gives the cell m + kT j (pass 1's load, in order of
+// j), slot j = the spectrum's cell 16 m + j (bin rsp_row_bin(16 m + j))
+// out. pr / pi: the row's planes of the FFT buffer. Every thread of the
+// block calls it: it holds 1 (kN = 256) or 2 barriers, and the last pass
+// reads the planes after the last of them. Pass 3 is 16 / kM2 DFTs of radix
+// kM2 (8 at kN = 2048, one of 16 at 4096).
+template <int kN, typename Load>
+static __device__ __forceinline__ void rsp_row_forward_with(
+    Load load, int m, const float2* __restrict__ tw, float* pr, float* pi,
+    float* xr, float* xi) {
   using P = RspRowPlan<kN>;
   constexpr int T = P::kT, M2 = P::kM2;
   // pass 1: radix 16 over cells m + T r, twiddles W_N^(m k)
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    xr[j] = live ? yre[base + m + T * j] : 0.0f;
-    xi[j] = live ? yim[base + m + T * j] : 0.0f;
-  }
+  for (int j = 0; j < 16; ++j) load(j, xr[j], xi[j]);
   rsp_dft<16, false>(xr, xi);
   rsp_twiddle<false>(xr, xi, tw + m, T);
   rsp_put(pr, pi, m, T, xr, xi);
@@ -231,6 +230,22 @@ static __device__ __forceinline__ void rsp_row_forward(
 #pragma unroll
     for (int j = 0; j < 16; j += M2) rsp_dft<M2, false>(xr + j, xi + j);
   }
+}
+
+// rsp_row_forward_with over the float planes yre / yim: cells m + kT j of
+// the row at `base`, zeros where !live (Kernels A, H and I).
+template <int kN>
+static __device__ __forceinline__ void rsp_row_forward(
+    const float* yre, const float* yim, size_t base, bool live, int m,
+    const float2* __restrict__ tw, float* pr, float* pi, float* xr,
+    float* xi) {
+  constexpr int T = RspRowPlan<kN>::kT;
+  rsp_row_forward_with<kN>(
+      [&](int j, float& re, float& im) {
+        re = live ? yre[base + m + T * j] : 0.0f;
+        im = live ? yim[base + m + T * j] : 0.0f;
+      },
+      m, tw, pr, pi, xr, xi);
 }
 
 // A[k] / B[k] = the sums of cells a + k .. a + k + w - 1 / b + k .. b + k +
@@ -268,16 +283,34 @@ static __device__ __forceinline__ void rsp_run_sums(const V* rw, int a, int b,
   }
 }
 
-// The CA/GO/SO tail of cells i0 .. i0 + 15 of one row, as rsp_ca_tail_each
-// (ca_cfar.cuh) computes it (PARTIAL edges, the mode, the scaler, the
-// active mask, peak grouping): `rw` the row's magnitudes at
-// rsp_mag_slot(RSP_PAD + cell), zero outside the active range and the
-// frame; C = min(w, 16) windows of each side at a time. Writes
-// thr[i0 .. i0 + 16) and peaks[i0 .. i0 + 16), both 16-byte aligned.
-template <int C>
-static __device__ __forceinline__ void rsp_ca_runs(
-    const float* rw, int i0, const RspCaRegs& r, float* __restrict__ thr,
-    uint8_t* __restrict__ peaks) {
+// The store of a 16-cell run's thresholds and peak bytes (Kernels A, B, H
+// and I): thr[i0 .. i0 + 16) as four float4, peaks[i0 .. i0 + 16) as one
+// uint4, both 16-byte aligned. pk[q] holds the peak bytes of cells
+// 4 q .. 4 q + 3 of the run, byte j & 3 the cell j.
+struct RspCaStore {
+  float* thr;
+  uint8_t* peaks;
+  __device__ __forceinline__ void operator()(int i0, const float (&t)[16],
+                                             const uint32_t (&pk)[4]) const {
+    float4* t4 = reinterpret_cast<float4*>(thr + i0);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      t4[q] = make_float4(t[4 * q], t[4 * q + 1], t[4 * q + 2], t[4 * q + 3]);
+    *reinterpret_cast<uint4*>(peaks + i0) = make_uint4(pk[0], pk[1], pk[2],
+                                                       pk[3]);
+  }
+};
+
+// The CA/GO/SO tail of cells i0 .. i0 + 15 of one row (PARTIAL edges, the
+// mode, the scaler, the active mask, peak grouping): `rw` the row's
+// magnitudes at rsp_mag_slot(RSP_PAD + cell), zero outside the active range
+// and the frame; C = min(w, 16) windows of each side at a time. Hands the
+// run's thresholds and peak bits to `store(i0, t, pk)` (RspCaStore, or
+// Kernel E's packed words).
+template <int C, typename Store>
+static __device__ __forceinline__ void rsp_ca_runs(const float* rw, int i0,
+                                                   const RspCaRegs& r,
+                                                   const Store& store) {
   const int w = 1 << r.log2w, g = r.guard;
   const int lo = r.active_lo, hi = r.active_hi;
   const float inv_div = ldexpf(1.0f, -r.div_sum);
@@ -307,25 +340,28 @@ static __device__ __forceinline__ void rsp_ca_runs(
       if (active && p) pk[j >> 2] |= 1u << (8 * (j & 3));
     }
   }
-  float4* t4 = reinterpret_cast<float4*>(thr + i0);
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    t4[q] = make_float4(t[4 * q], t[4 * q + 1], t[4 * q + 2], t[4 * q + 3]);
-  *reinterpret_cast<uint4*>(peaks + i0) = make_uint4(pk[0], pk[1], pk[2],
-                                                     pk[3]);
+  store(i0, t, pk);
 }
 
-// rsp_ca_runs over a row of kN cells, one thread a 16-cell run (cells
-// 16 m ..), C = min(w, 16) from the window register.
+// rsp_ca_runs over a row, one thread a 16-cell run (cells 16 m ..),
+// C = min(w, 16) from the window register, each run to `store`.
+template <typename Store>
+static __device__ __forceinline__ void rsp_ca_row_with(const float* rw, int m,
+                                                       const RspCaRegs& r,
+                                                       const Store& store) {
+  switch (r.log2w) {
+    case 0: rsp_ca_runs<1>(rw, 16 * m, r, store); break;
+    case 1: rsp_ca_runs<2>(rw, 16 * m, r, store); break;
+    case 2: rsp_ca_runs<4>(rw, 16 * m, r, store); break;
+    case 3: rsp_ca_runs<8>(rw, 16 * m, r, store); break;
+    default: rsp_ca_runs<16>(rw, 16 * m, r, store); break;
+  }
+}
+
+// rsp_ca_row_with and RspCaStore: thresholds to thr, peak bytes to pk.
 static __device__ __forceinline__ void rsp_ca_row(const float* rw, int m,
                                                   const RspCaRegs& r,
                                                   float* __restrict__ thr,
                                                   uint8_t* __restrict__ pk) {
-  switch (r.log2w) {
-    case 0: rsp_ca_runs<1>(rw, 16 * m, r, thr, pk); break;
-    case 1: rsp_ca_runs<2>(rw, 16 * m, r, thr, pk); break;
-    case 2: rsp_ca_runs<4>(rw, 16 * m, r, thr, pk); break;
-    case 3: rsp_ca_runs<8>(rw, 16 * m, r, thr, pk); break;
-    default: rsp_ca_runs<16>(rw, 16 * m, r, thr, pk); break;
-  }
+  rsp_ca_row_with(rw, m, r, RspCaStore{thr, pk});
 }

@@ -10,7 +10,9 @@ chain stages that honour the FFT-size and CFAR registers.
 * Kernel E, ``wire_ca``: the wire top's CA chain, packed IQ beat words in,
   packed ``{threshold | bin | peak}`` words out. Replaces
   ``chain_pallas.py::fused_chain_ca_packed`` (:1042, ``pallas_call`` :1122);
-  CUDA source ``csrc/wire_ca.cu``. It moves 8 bytes per sample, not 13.
+  CUDA source ``csrc/wire_ca.cu``, Kernel A's row plan with a load that
+  unpacks the words and a tail store that packs them. It moves 8 bytes per
+  sample, not 13.
 * Kernel I, ``pc_ca``: the collapsed pulse-compression chain, Kernel A with
   the matched filter's reference spectrum H multiplied into the spectrum
   before the magnitude, frames of N = 256 ... 4096. Replaces the ``h_block``
@@ -20,12 +22,12 @@ chain stages that honour the FFT-size and CFAR registers.
 * ``fused_chain_ca_op``, ``fused_chain_gos_op`` and ``fused_wire_chain_op``,
   the ports of ``chain_pallas.py:1402``, ``:1350`` and ``:1432``.
 
-Kernels A and I run the register-resident row FFT of ``csrc/row_fft.cuh``
-(Kernel H's range rows share it): radix-16 passes over ``ROW_RADICES``, the
-spectrum left in digit-reversed order (``row_order``) and each magnitude
-stored at its natural bin, the pass twiddles ``row_twiddles``; I multiplies
-H in that order (``_permuted``). Kernels D and E keep the radix-2 FFT front
-``csrc/fft_radix2.cuh``. Each CUDA source says what bounds
+Kernels A, E and I run the register-resident row FFT of
+``csrc/row_fft.cuh`` (Kernel H's range rows share it): radix-16 passes over
+``ROW_RADICES``, the spectrum left in digit-reversed order (``row_order``)
+and each magnitude stored at its natural bin, the pass twiddles
+``row_twiddles``; I multiplies H in that order (``_permuted``). Kernel D
+keeps the radix-2 FFT front ``csrc/fft_radix2.cuh``. Each CUDA source says what bounds
 its kernel on the H100 and how its design answers. The spectrum stays on
 chip: a kernel reads the IQ pair once and writes threshold and peaks once. A
 wrapper launches its kernel for CUDA tensors and uses the plain version
@@ -233,7 +235,7 @@ def wire_ca(words, rt: RuntimeConfig, fft_cfg: FftConfig,
                    ctypes.c_float, CaRegs, pointers=2)
         call_entry("wire_ca", w.device, fn,
                    (w.data_ptr(), out.data_ptr(), frames),
-                   (_twiddles(n, w.device).data_ptr(), n.bit_length() - 1,
+                   (_row_twiddles(n, w.device).data_ptr(), n.bit_length() - 1,
                     fft_scale(n, fft_cfg), ca_registers(rt, cfar_cfg, n)))
     return out
 

@@ -4,15 +4,25 @@
   CA/GO/SO CFAR. Replaces
   ``rsp_chains_tpu/kernels/int_chain_pallas.py::fused_chain_int`` (:441,
   ``pallas_call`` :512); CUDA source ``csrc/chain_int.cu`` with
-  ``csrc/int_front.cuh``. Two routes, chosen here by N alone: frames of
+  ``csrc/int_front.cuh``. Three routes, chosen here by N alone: frames of
   ``ROW_SIZES`` take the row plan in registers (``csrc/int_rows.cuh``,
-  entry ``rsp_chain_int_rows``), longer ones a frame a block (entry
-  ``rsp_chain_int``); both give the same integers.
+  entry ``rsp_chain_int_rows``), frames up to ``2**MAX_LOG2N`` one a block
+  (entry ``rsp_chain_int``), longer ones the split route; all give the same
+  integers.
 * Kernel G, ``chain_int_gos``: the same front + an integer CA / GOS tail
   muxed by the algorithm register. Replaces
   ``int_chain_pallas.py::fused_chain_int_gos`` (:552, ``pallas_call`` :622);
   CUDA source ``csrc/chain_int_gos.cu`` with the selection of
-  ``csrc/gos_cfar.cuh``.
+  ``csrc/gos_cfar.cuh``, frames up to ``2**MAX_LOG2N`` one a block, longer
+  ones the split route.
+* The split route of F and G for frames of N > ``2**MAX_LOG2N`` (CUDA source
+  ``csrc/int_split.cu``, entry ``rsp_int_split``, counted as
+  ``chain_int_split`` and ``chain_int_gos_split``): a head launch runs the
+  first L - 14 FFT stages on groups of cells in registers, a body launch the
+  last 14 on each sub-frame of 16384 cells in shared memory and writes the
+  magnitude in natural order, a tail launch F's CA sums or G's rank
+  statistics over tiles of the magnitude row; 12 bytes a sample of scratch,
+  allocated a call.
 * ``int_chain_fusable`` and ``fused_chain_int_op``, the ports of
   ``int_chain_pallas.py:660-686`` and ``:689-779``: host ``if``s on the
   registers choose Kernel F, Kernel G or the integer ops
@@ -47,9 +57,11 @@ from ..ops.cfar import CfarOutput, effective_algorithm, window_registers
 from .cfar import MAX_LOG2_W, PAD, check_window_bounds, entry, launch, takes_plain_path
 from .chain import FUSABLE_SIZES
 
-MAX_LOG2N = 14    # the kernels' frame bound: ~195 KiB of shared memory at
-                  # N = 16384, under the H100's 227 KiB a block
-OPS_CHUNK = 512   # frames per call of the integer ops (their window stacks)
+MAX_LOG2N = 14    # the frame-per-block kernels' bound: ~195 KiB of shared
+                  # memory at N = 16384, under the H100's 227 KiB a block;
+                  # longer frames take the split route (csrc/int_split.cu)
+MAX_LOG2N_SPLIT = 30    # the split route's bound (int32 cell indices)
+OPS_CELLS = 512 * 1024  # cells a call of the plain versions (window stacks)
 ROW_SIZES = FUSABLE_SIZES   # Kernel F's row-plan route (csrc/chain_int.cu)
 
 
@@ -118,9 +130,10 @@ def _int_twiddles(n: int, device: torch.device) -> torch.Tensor:
 
 def _check_operands(name: str, n: int, rt: RuntimeConfig, fft_cfg: FftConfig,
                     cfar_cfg: CfarConfig, gos: bool) -> None:
-    if n != fft_cfg.max_size or n & (n - 1) or not 256 <= n <= 1 << MAX_LOG2N:
+    if (n != fft_cfg.max_size or n & (n - 1)
+            or not 256 <= n <= 1 << MAX_LOG2N_SPLIT):
         raise ValueError(f"{name} takes frames of max_size, a power of two in "
-                         f"[256, {1 << MAX_LOG2N}], got {n} (max_size "
+                         f"[256, {1 << MAX_LOG2N_SPLIT}], got {n} (max_size "
                          f"{fft_cfg.max_size})")
     check_window_bounds(cfar_cfg)
     check_expanding(fft_cfg.expand_logic)
@@ -132,20 +145,38 @@ def _check_operands(name: str, n: int, rt: RuntimeConfig, fft_cfg: FftConfig,
                          "on the integer ops (fused_chain_int_op)")
 
 
+def _by_cells(fn, x: CLike) -> CfarOutput:
+    """``fn`` over chunks of whole frames of ``x``, about ``OPS_CELLS`` cells
+    (one frame at least) a call, outputs concatenated: the integer ops'
+    window stacks take ~2 KB a cell at max_ref_window 64
+    (``int_chain_pallas.py:710-741``)."""
+    xp = x if isinstance(x, C) else as_pair(x)
+    n = xp.shape[-1]
+    re, im = xp.re.reshape(-1, n), xp.im.reshape(-1, n)
+    step = max(1, OPS_CELLS // n)
+    outs = [fn(C(re[k:k + step], im[k:k + step]))
+            for k in range(0, max(re.shape[0], 1), step)]
+    return CfarOutput(
+        threshold=torch.cat([o.threshold for o in outs]).reshape(xp.shape),
+        peaks=torch.cat([o.peaks for o in outs]).reshape(xp.shape))
+
+
 def chain_int_reference(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
                         cfar_cfg: CfarConfig) -> CfarOutput:
     """The plain PyTorch version of ``chain_int``: the full-size
-    ``fft_int_op``, ``mag_int_op`` and ``ca_cfar_int``."""
-    spec = fft_int_op(x if isinstance(x, C) else as_pair(x), None, fft_cfg)
-    return ca_cfar_int(mag_int_op(spec, rt.mag_mode), rt, cfar_cfg)
+    ``fft_int_op``, ``mag_int_op`` and ``ca_cfar_int``, by ``_by_cells``."""
+    return _by_cells(lambda c: ca_cfar_int(
+        mag_int_op(fft_int_op(c, None, fft_cfg), rt.mag_mode), rt, cfar_cfg),
+        x)
 
 
 def chain_int_gos_reference(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
                             cfar_cfg: CfarConfig) -> CfarOutput:
     """The plain PyTorch version of ``chain_int_gos``: the full-size
-    ``fft_int_op``, ``mag_int_op`` and ``cfar_int``."""
-    spec = fft_int_op(x if isinstance(x, C) else as_pair(x), None, fft_cfg)
-    return cfar_int(mag_int_op(spec, rt.mag_mode), rt, cfar_cfg)
+    ``fft_int_op``, ``mag_int_op`` and ``cfar_int``, by ``_by_cells``."""
+    return _by_cells(lambda c: cfar_int(
+        mag_int_op(fft_int_op(c, None, fft_cfg), rt.mag_mode), rt, cfar_cfg),
+        x)
 
 
 def _int_kernel(name: str, symbol: str, x: C, rt: RuntimeConfig,
@@ -161,18 +192,40 @@ def _int_kernel(name: str, symbol: str, x: C, rt: RuntimeConfig,
                   int_registers(rt, cfar_cfg, n), dtype=torch.int32)
 
 
+def _split_kernel(name: str, x: C, regs: IntRegs,
+                  fft_cfg: FftConfig) -> CfarOutput:
+    """Launch the split route (``csrc/int_split.cu``) over the CUDA frames
+    ``x`` of N > ``2**MAX_LOG2N`` with the register struct ``regs``, whose
+    algorithm register picks F's CA sums (0) or G's rank statistics (1);
+    the 12 bytes a sample of scratch live for the call."""
+    n = x.shape[-1]
+    xi = C(x.re.to(torch.int32).contiguous(), x.im.to(torch.int32).contiguous())
+    expand, lsb = fft_masks(fft_cfg, n)
+    scratch = torch.empty(3 * xi.re.numel(), dtype=torch.int32,
+                          device=x.device)
+    fn = entry("rsp_int_split", ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+               ctypes.c_int, IntRegs, ctypes.c_void_p)
+    return launch(name, xi, fn, _int_twiddles(n, x.device).data_ptr(),
+                  n.bit_length() - 1, expand, lsb, regs, scratch.data_ptr(),
+                  dtype=torch.int32)
+
+
 def chain_int(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
               cfar_cfg: CfarConfig) -> CfarOutput:
     """Bit-true integer FFT + magnitude (modes 0-2) + integer CA/GO/SO CFAR
     at the full elaborated FFT size over 16-bit integer IQ frames ``[..., N]``
     (an int32 or integer-valued float ``C``), N = ``fft_cfg.max_size`` a power
-    of two in [256, 16384]. Returns an int32 threshold and bool peaks."""
+    of two >= 256. Returns an int32 threshold and bool peaks."""
     xp = x if isinstance(x, C) else as_pair(x)
-    _check_operands("chain_int", xp.shape[-1], rt, fft_cfg, cfar_cfg, False)
+    n = xp.shape[-1]
+    _check_operands("chain_int", n, rt, fft_cfg, cfar_cfg, False)
     if takes_plain_path(xp, "chain_int"):
         return chain_int_reference(xp, rt, fft_cfg, cfar_cfg)
-    symbol = ("rsp_chain_int_rows" if xp.shape[-1] in ROW_SIZES
-              else "rsp_chain_int")
+    if n > 1 << MAX_LOG2N:
+        regs = int_registers(rt, cfar_cfg, n)
+        regs.algorithm = 0
+        return _split_kernel("chain_int_split", xp, regs, fft_cfg)
+    symbol = "rsp_chain_int_rows" if n in ROW_SIZES else "rsp_chain_int"
     return _int_kernel("chain_int", symbol, xp, rt, fft_cfg, cfar_cfg)
 
 
@@ -183,31 +236,23 @@ def chain_int_gos(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
     FFT size, frames as ``chain_int``'s. The CASH mode is refused: it runs on
     the integer ops. Returns an int32 threshold and bool peaks."""
     xp = x if isinstance(x, C) else as_pair(x)
-    _check_operands("chain_int_gos", xp.shape[-1], rt, fft_cfg, cfar_cfg,
-                    True)
+    n = xp.shape[-1]
+    _check_operands("chain_int_gos", n, rt, fft_cfg, cfar_cfg, True)
     if takes_plain_path(xp, "chain_int_gos"):
         return chain_int_gos_reference(xp, rt, fft_cfg, cfar_cfg)
+    if n > 1 << MAX_LOG2N:
+        return _split_kernel("chain_int_gos_split", xp,
+                             int_registers(rt, cfar_cfg, n), fft_cfg)
     return _int_kernel("chain_int_gos", "rsp_chain_int_gos", xp, rt, fft_cfg,
                        cfar_cfg)
 
 
 def int_ops_chain(x: CLike, rt: RuntimeConfig, cfg: ChainConfig) -> CfarOutput:
-    """The integer ops, ``fft_int_op`` -> ``mag_int_op`` -> ``cfar_int``,
-    over chunks of ``OPS_CHUNK`` frames: their window stacks are ~2 MB a
-    frame at max_ref_window 64 (``int_chain_pallas.py:710-741``)."""
-    xp = x if isinstance(x, C) else as_pair(x)
-    n = xp.shape[-1]
-    re, im = xp.re.reshape(-1, n), xp.im.reshape(-1, n)
-
-    def one(r, i):
-        spec = fft_int_op(C(r, i), rt.log2_fft_size, cfg.fft)
-        return cfar_int(mag_int_op(spec, rt.mag_mode, cfg.mag), rt, cfg.cfar)
-
-    outs = [one(re[k:k + OPS_CHUNK], im[k:k + OPS_CHUNK])
-            for k in range(0, max(re.shape[0], 1), OPS_CHUNK)]
-    return CfarOutput(
-        threshold=torch.cat([o.threshold for o in outs]).reshape(xp.shape),
-        peaks=torch.cat([o.peaks for o in outs]).reshape(xp.shape))
+    """The integer ops, ``fft_int_op`` -> ``mag_int_op`` -> ``cfar_int``, by
+    ``_by_cells``."""
+    return _by_cells(lambda c: cfar_int(mag_int_op(
+        fft_int_op(c, rt.log2_fft_size, cfg.fft), rt.mag_mode, cfg.mag), rt,
+        cfg.cfar), x)
 
 
 def int_chain_fusable(cfg: ChainConfig) -> bool:
@@ -238,8 +283,8 @@ def fused_chain_int_op(x: CLike, rt: RuntimeConfig,
     below 3, CA-like registers run Kernel F and the GOS registers of a GOSCA
     elaboration Kernel G; the LUT log2, the CASH mode, a shrunken FFT size
     and a pure-GOS elaboration run the integer ops. Every route gives the
-    same integers. A kernel's route with frames beyond the kernels' bound
-    (``MAX_LOG2N``) raises, on the CPU too."""
+    same integers, at every power-of-two frame >= 256 that
+    ``int_chain_fusable`` passes."""
     xp = x if isinstance(x, C) else as_pair(x)
     fft_cfg, cfar_cfg = cfg.fft, cfg.cfar
     if cfar_cfg.variant is CfarVariant.GOS:

@@ -5,7 +5,8 @@ versions of Kernels F and G against the JAX integer kernels in interpret
 mode, the bit-true chain stage's routes, and the bit-true presets.
 
 Bar: every integer equal, every peak equal. Inputs are seeded numpy arrays
-of 16-bit integers, N = 256, at most 8 frames."""
+of 16-bit integers, N = 256, at most 8 frames; beyond the frame-per-block
+kernels' bound, N = 32768 and 65536, two frames."""
 
 import dataclasses
 import functools
@@ -392,20 +393,52 @@ def test_bit_true_chain_takes_the_kernels_at_their_frame_bound(
     assert torch.equal(got.peaks, want.peaks)
 
 
-@pytest.mark.parametrize("variant, regs", [
-    (R.CfarVariant.CA, W8),
-    (R.CfarVariant.GOSCA, GOS_REGS_BIG),
-])
-def test_bit_true_chain_beyond_the_kernels_frame_bound_raises(variant, regs):
-    """Frames longer than the kernels take are refused on a kernel's route,
-    on the CPU as on the card, never sent quietly to the integer ops."""
-    n = 2 << TK.MAX_LOG2N
-    chain = T.fft_mag_cfar_chain(_big_chain(variant, n))
+# register points beyond the frame-per-block kernels' bound, each with the
+# route it must take: (variant, registers, route)
+BEYOND = [
+    (R.CfarVariant.CA, W8, "chain_int"),
+    (R.CfarVariant.CA, dict(W8, cfar_mode=1, peak_grouping=1), "chain_int"),
+    (R.CfarVariant.GOSCA, GOS_REGS_BIG, "chain_int_gos"),
+    (R.CfarVariant.GOSCA, dict(W8, cfar_algorithm=0, cfar_mode=2),
+     "chain_int"),
+]
+
+
+@pytest.mark.parametrize("n", [2 << TK.MAX_LOG2N, 4 << TK.MAX_LOG2N])
+@pytest.mark.parametrize("variant, regs, route", BEYOND)
+def test_bit_true_chain_beyond_the_frame_per_block_bound_matches_jax(
+        n, variant, regs, route, monkeypatch):
+    """Frames of N = 32768 and 65536, which JAX's ``int_chain_fusable``
+    passes: the port's chain takes the kernel's route (on the card the split
+    route of ``csrc/int_split.cu``; here its plain version) and equals the
+    JAX chain on its XLA integer composition."""
+    cfar_j = R.CfarConfig(max_ref_window=16, max_guard_window=4,
+                          variant=variant, include_cash=True, max_fft_size=n)
+    cfg_j = _int_cfg(cfar_j, max_size=n)
+    assert JK.int_chain_fusable(cfg_j)
+    chain = T.fft_mag_cfar_chain(chain_config_from_reference(cfg_j))
     assert chain.stage_names == ("fft_mag_cfar_int_fused",)
-    x = T.C(torch.zeros(1, n, dtype=torch.int32),
-            torch.zeros(1, n, dtype=torch.int32))
-    with pytest.raises(ValueError, match="power of two in"):
-        chain(x, T.RuntimeConfig.make(fft_size=n, **regs))
+    taken = _spy_routes(monkeypatch)
+    re, im = _iq(12, frames=2, n=n)
+    rt_j, rt_t = _regs(**{**regs, "fft_size": n})
+    got = chain(_pair_t(re, im), rt_t)
+    assert taken == [route]
+    plain_j = dataclasses.replace(cfg_j, cfar=dataclasses.replace(
+        cfar_j, use_pallas=False))
+    _assert_equal(got, _chain_j(plain_j)(_pair_j(re, im), rt_j))
+    assert bool(got.peaks.any())
+
+
+@pytest.mark.parametrize("name", ["chain_int", "chain_int_gos"])
+def test_the_kernels_take_every_power_of_two_frame_jax_passes(name):
+    """No power-of-two frame >= 256 that ``int_chain_fusable`` passes is
+    refused by the kernels' operand checks (up to the split route's 2^30)."""
+    for log2n in range(8, TK.MAX_LOG2N_SPLIT + 1):
+        n = 1 << log2n
+        cfg = _big_chain(R.CfarVariant.GOSCA, n)
+        assert TK.int_chain_fusable(cfg)
+        TK._check_operands(name, n, T.RuntimeConfig.make(fft_size=n),
+                           cfg.fft, cfg.cfar, name == "chain_int_gos")
 
 
 def test_integer_ops_routes_run_beyond_the_kernels_frame_bound(monkeypatch):
@@ -471,7 +504,7 @@ def test_int_ops_chain_chunks_give_the_same_integers(monkeypatch):
                               guard_window_size=2, cfar_mode=3,
                               sub_window_size=3)
     whole = TK.int_ops_chain(_pair_t(re, im), rt, cfg)
-    monkeypatch.setattr(TK, "OPS_CHUNK", 2)
+    monkeypatch.setattr(TK, "OPS_CELLS", 2 * N)
     chunked = TK.int_ops_chain(_pair_t(re, im), rt, cfg)
     assert torch.equal(whole.threshold, chunked.threshold)
     assert torch.equal(whole.peaks, chunked.peaks)

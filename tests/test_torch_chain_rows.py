@@ -1,5 +1,5 @@
-"""The row plans of Kernels A (``chain_ca``), I (``pc_ca``) and F
-(``chain_int``) on the CPU, through numpy emulations of the kernels' index
+"""The row plans of Kernels A (``chain_ca``), E (``wire_ca``), I (``pc_ca``)
+and F (``chain_int``) on the CPU, through numpy emulations of the kernels' index
 plans
 (``csrc/row_fft.cuh``, ``csrc/int_rows.cuh``): which cells each thread holds
 in each pass, the butterflies or DFTs it runs on them, the twiddle it reads,
@@ -22,6 +22,12 @@ where each bin's magnitude lands in the padded row, and the run-sum tail.
   4096), the spectrum times H in ``row_order`` (``kernels/chain.py
   _permuted``), within 1e-5 relative Δthr of ``pc_ca_reference`` and of the
   JAX ``fused_chain_ca(h_block=...)`` (interpret mode), peaks equal.
+* E: the same plan with words in and words out: pass 1 unpacks each word
+  (real part in bits [31:16], imaginary in [15:0], sign-extended), the tail
+  packs each run's thresholds, natural bins and peaks (``RspWireStore``);
+  at N = 256, 512 and 1024 the emulation is within the JAX bench's wire bar
+  of ``wire_ca_reference`` and of the JAX ``fused_chain_ca_packed``
+  (interpret mode), bins and peaks equal.
 * The shared-memory plan: the exchanges between passes are free of bank
   conflicts, and the magnitude scatter of A, I and F at most 2-way (none at
   N = 256).
@@ -37,8 +43,11 @@ import functools
 import jax
 
 import rsp_chains_tpu as R
+import jax.numpy as jnp
+
+from rsp_chains_tpu import packing as JP
 from rsp_chains_tpu.kernels.chain_pallas import (
-    fused_chain_ca, fused_chain_ca_op,
+    fused_chain_ca, fused_chain_ca_op, fused_chain_ca_packed,
 )
 from rsp_chains_tpu.kernels.rd_pallas import _h_block
 from rsp_chains_tpu.ops import bit_true as JB
@@ -51,6 +60,7 @@ from rsp_chains_tpu_torch.kernels import int_chain as kint
 from rsp_chains_tpu_torch.ops import bit_true as TB
 from rsp_chains_tpu_torch.ops.fft import fft_scale
 from rsp_chains_tpu_torch.ops.matched_filter import h_planes
+from test_torch_wire import _assert_wire_bar
 
 SIZES = list(kchain.PC_SIZES)            # the row plan: A, H and I; I all
 INT_SIZES = list(kint.ROW_SIZES)         # F's row plan
@@ -487,6 +497,83 @@ def test_the_emulated_pulse_compression_rows_match_pc_ca_and_jax(n, regs):
     thr_j = np.asarray(want_j.threshold)
     assert np.abs(thr - thr_j).max() / np.abs(thr_j).max() < 1e-4
     np.testing.assert_array_equal(pk, np.asarray(want_j.peaks))
+
+
+# ---- the wire plan (Kernel E) ----
+
+def _unpack(words):
+    """Pass 1's load of ``rsp_wire_ca_rows_kernel``: the real part in bits
+    [31:16] and the imaginary part in [15:0] of each word, sign-extended."""
+    u = words.astype(np.uint32)
+    re = (u >> 16).astype(np.uint16).view(np.int16)
+    im = (u & 0xFFFF).astype(np.uint16).view(np.int16)
+    return re.astype(np.float32), im.astype(np.float32)
+
+
+def _wire_store(thr, pk, n):
+    """``RspWireStore`` run by run (cells i0 .. i0 + 15 of thread i0 / 16):
+    the float32 threshold clipped to [0, 2^(31 - log2n) - 1] and truncated,
+    in bits [31:log2n+1]; the cell's natural bin in [log2n:1]; the peak in
+    bit 0."""
+    log2n = n.bit_length() - 1
+    out = np.empty(thr.shape, np.uint32)
+    top = np.float32((1 << (31 - log2n)) - 1)
+    for i0 in range(0, n, 16):
+        t = np.minimum(np.maximum(thr[:, i0:i0 + 16], np.float32(0)), top)
+        cells = np.arange(i0, i0 + 16, dtype=np.uint32)
+        out[:, i0:i0 + 16] = ((t.astype(np.uint32) << (log2n + 1))
+                              | (cells << 1) | pk[:, i0:i0 + 16])
+    return out
+
+
+WIRE_REGS = [
+    dict(),
+    dict(cfar_mode=1, peak_grouping=1, ref_window_size=16,
+         guard_window_size=2, div_sum=4, cfar_fft_size=200),
+]
+
+
+@pytest.mark.parametrize("n", kchain.FUSABLE_SIZES)
+@pytest.mark.parametrize("regs", WIRE_REGS)
+def test_the_emulated_wire_rows_match_wire_ca_reference_and_jax(n, regs):
+    """Kernel E's plan: words unpacked in pass 1's load, A's forward plan,
+    scatter and run-sum tail, the runs packed into words. At the JAX bench's
+    wire bar against ``wire_ca_reference`` and the JAX
+    ``fused_chain_ca_packed`` (interpret mode): bins equal, the threshold
+    field within 2 LSB and 0.05 LSB on average, no peak flip."""
+    rng = np.random.RandomState(n + 11 * len(regs))
+    x = (rng.randn(3, n) + 1j * rng.randn(3, n)) * 40
+    x += 900 * np.exp(2j * np.pi * 0.21 * np.arange(n))
+    q = (np.clip(np.round(x.real), -32767, 32767)
+         + 1j * np.clip(np.round(x.imag), -32767, 32767)).astype(np.complex64)
+    words = np.array(JP.pack_iq(jnp.asarray(q))).view(np.uint32)
+    re, im = _unpack(words)
+    np.testing.assert_array_equal(re + 1j * im, q)
+    rt_j = R.RuntimeConfig.make(**{"fft_size": n, "ref_window_size": 32,
+                                   "guard_window_size": 4, "div_sum": 5,
+                                   "threshold_scaler": 3.5, **regs})
+    rt = runtime_from_reference(rt_j.peek())
+    cfg_t = T.ChainConfig(fft=T.FftConfig(max_size=n), cfar=T.CfarConfig(
+        max_ref_window=64, variant=T.CfarVariant.CA, include_cash=False,
+        max_fft_size=n))
+    r = kcfar.ca_registers(rt, cfg_t.cfar, n)
+    thr, pk = _chain_ca(re + 1j * im, n, r, fft_scale(n, cfg_t.fft))
+    got = _wire_store(thr, pk, n)
+    bw = n.bit_length() - 1
+    np.testing.assert_array_equal((got >> 1) & (n - 1),
+                                  np.broadcast_to(np.arange(n), got.shape))
+    want = kchain.wire_ca_reference(torch.from_numpy(words.view(np.int32)),
+                                    rt, cfg_t.fft, cfg_t.cfar)
+    _assert_wire_bar(got, want.numpy().view(np.uint32), bw)
+    cfar_j = R.CfarConfig(max_ref_window=64, variant=R.CfarVariant.CA,
+                          include_cash=False, max_fft_size=n)
+    want_j = fused_chain_ca_packed(jnp.asarray(words), rt_j,
+                                   R.FftConfig(max_size=n), cfar_j,
+                                   interpret=True)
+    _assert_wire_bar(got, np.asarray(want_j).view(np.uint32), bw)
+    for w in (want.numpy().view(np.uint32), np.asarray(want_j)):
+        np.testing.assert_array_equal(w & 1, got & 1)
+    assert (got & 1).any()
 
 
 def test_the_row_routes_of_a_f_and_h_keep_their_sizes():

@@ -814,9 +814,87 @@ def test_new_wrappers_refuse_bad_operands(dev):
         kint.chain_int_gos(x, rt.merge_regs(cfar_mode=3), gcfg.fft, gcfg.cfar)
     with pytest.raises(ValueError, match="at most 7 expanding"):
         kint.chain_int(x, rt, rsp.FftConfig(expand_logic=(1,) * 10), cfg.cfar)
-    big = _int_iq((1, 32768), dev)
-    with pytest.raises(ValueError, match="power of two in"):
-        kint.chain_int_gos(big, rt, rsp.FftConfig(max_size=32768), gcfg.cfar)
+
+
+# ---- Kernels F and G beyond N = 16384: the split route (int_split.cu) ----
+
+# (name, the elaboration's variant, registers over GOS, the split route's
+# launch name)
+SPLIT_POINTS = [
+    ("CA", rsp.CfarVariant.CA, dict(cfar_algorithm=0), "chain_int_split"),
+    ("GO grouping, cut", rsp.CfarVariant.CA,
+     dict(cfar_algorithm=0, cfar_mode=1, peak_grouping=1,
+          cfar_fft_size=20000), "chain_int_split"),
+    ("GOS", rsp.CfarVariant.GOSCA, dict(), "chain_int_gos_split"),
+    ("GOS w64, cut, SQR", rsp.CfarVariant.GOSCA,
+     dict(ref_window_size=64, guard_window_size=8, index_lagg=63,
+          index_lead=5, cfar_fft_size=12345, mag_mode=1),
+     "chain_int_gos_split"),
+    ("GOSCA algorithm 0", rsp.CfarVariant.GOSCA, dict(cfar_algorithm=0),
+     "chain_int_split"),
+]
+
+
+def _split_cfg(variant, n, **fft):
+    return rsp.ChainConfig(
+        fft=rsp.FftConfig(max_size=n, **fft),
+        cfar=rsp.CfarConfig(max_ref_window=64, variant=variant,
+                            include_cash=variant is rsp.CfarVariant.GOSCA,
+                            max_fft_size=n),
+        fixed_point=rsp.FixedPointConfig(enabled=True, width=16, bin_point=0,
+                                         bit_true=True))
+
+
+@pytest.mark.parametrize("n", [32768, 65536])
+@pytest.mark.parametrize("point", SPLIT_POINTS, ids=[p[0] for p in
+                                                     SPLIT_POINTS])
+def test_bit_true_chain_beyond_the_frame_per_block_bound_is_exact(dev, n,
+                                                                  point):
+    """Through ``fft_mag_cfar_chain``: the split route, exact against the
+    plain versions (a GOSCA elaboration's algorithm-0 registers take F's)."""
+    _, variant, regs, kernel = point
+    cfg = _split_cfg(variant, n)
+    chain = rsp.fft_mag_cfar_chain(cfg)
+    assert chain.stage_names == ("fft_mag_cfar_int_fused",)
+    x = _int_iq((3, n), dev, seed=n % 97, amp=8000)
+    rt = rsp.RuntimeConfig.make(**{"fft_size": n, **GOS, **regs})
+    before = dict(_build.LAUNCHES)
+    got = chain(x, rt)
+    after = dict(_build.LAUNCHES)
+    assert {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)} == {kernel: 1}
+    _assert_exact(got, kint.int_ops_chain(x, rt, cfg))
+    assert bool(got.peaks.any())
+
+
+@pytest.mark.parametrize("n, frames", [(32768, 2), (1 << 19, 1),
+                                       (1 << 20, 1)])
+@pytest.mark.parametrize("fft", [dict(), dict(expand=(0, 1, 9)),
+                                 dict(expand=(1, 7), lsb=(0, 12)),
+                                 dict(expand=tuple(range(7)))])
+def test_split_route_is_exact_at_its_stage_flags(dev, n, frames, fft):
+    """Expanding and keepLSB stages in the head and the body, and one or two
+    head launches (N = 2^19 and 2^20), full-scale frames; F and G."""
+    x = _int_iq((frames, n), dev, seed=n % 89 + len(fft), amp=32767)
+    for variant, regs in ((rsp.CfarVariant.CA, dict(cfar_algorithm=0)),
+                          (rsp.CfarVariant.GOSCA, dict())):
+        cfg = _split_cfg(variant, n)
+        fft_cfg = _fft(n, **fft)
+        rt = rsp.RuntimeConfig.make(**{"fft_size": n, **GOS, **regs})
+        fn, ref = ((kint.chain_int, kint.chain_int_reference)
+                   if variant is rsp.CfarVariant.CA else
+                   (kint.chain_int_gos, kint.chain_int_gos_reference))
+        _assert_exact(fn(x, rt, fft_cfg, cfg.cfar),
+                      ref(x, rt, fft_cfg, cfg.cfar))
+
+
+def test_split_route_register_writes_build_once(dev):
+    chain = rsp.fft_mag_cfar_chain(_split_cfg(rsp.CfarVariant.GOSCA, 32768))
+    x = _int_iq((2, 32768), dev)
+    for regs in INT_GOS_REGS + [dict(cfar_algorithm=0)]:
+        chain(x, rsp.RuntimeConfig.make(**{"fft_size": 32768, **GOS, **regs}))
+    torch.cuda.synchronize()
+    assert _build.BUILDS == 1
 
 
 # ---- the range-Doppler family: Kernels H (rd_ca / rd_map), I (pc_ca) and
