@@ -41,7 +41,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    on an 8-channel slice), ``pulse_compression_chain``, ``rx_rd_tx_chain``
    and ``rd_2d_cfar_chain`` over their register sweeps, and the detection of
    a ``chirp_with_targets`` CPI at its (Doppler, range) cell; then the
-   sharded chains (``rsp_chains_tpu_torch.parallel``) on meshes of virtual
+   signal sources (``source_paths``): ``rsp_chain_vanilla`` (float CA,
+   Kernel B) on a CUDA profile of the headline CPI, each frame's tone
+   checked at its bin, ``chain_with_mem`` on a ROM CPI of three tones and
+   seeded noise (Kernel C under GOS registers, B under CA registers, no
+   detection with the read gate off), ``real_rx_chain`` on real CPI
+   frames (the tail at 512 cells), and the fixed-point default
+   ``rsp_chain_vanilla()`` on one frame over its start words (no kernel);
+   then the sharded chains (``rsp_chains_tpu_torch.parallel``) on meshes of virtual
    shards of the card, with the kernel halo (``use_rdma_halo``):
    ``range_sharded_mag_cfar`` on a 1 x 4 mesh and ``make_sharded_pipeline``
    on 1 x 4 and 4 x 1 meshes against the unsharded ``fft_mag_cfar_chain``,
@@ -54,7 +61,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    on the 1 x 4 mesh's blocks (K exact, L within 1e-6 relative). With two
    cards or more the sharded paths run once more on a mesh of distinct
    cards; with one, a line says so;
-5. times each kernel and its plain version, and the chains, with CUDA events;
+5. times each kernel and its plain version, and the chains, with CUDA events
+   (the source paths and the NCO alone too, the NCO against its bytes);
    times Kernel B at its points (the headline, the fft_size 512 spectrum, a
    GOSCA elaboration's CA registers, the range-Doppler map, the given
    magnitude of the 1 x 4 mesh) and frame sizes, Kernel I at its frame
@@ -471,13 +479,15 @@ def ptxas_report(log: str, kernels) -> dict:
 
 
 def chunked(fn, x, chunk: int = GOS_CHUNK):
-    """``fn`` over the channel chunks of the frames ``x`` ([channels, ...]),
-    outputs concatenated: the plain GOS versions at the headline shape."""
+    """``fn`` over the channel chunks of the frames ``x`` ([channels, ...],
+    a pair or a real tensor), outputs concatenated: the plain GOS versions
+    at the headline shape."""
     import torch
 
     from rsp_chains_tpu_torch import C, CfarOutput
 
-    outs = [fn(C(x.re[i:i + chunk], x.im[i:i + chunk]))
+    outs = [fn(x[i:i + chunk] if isinstance(x, torch.Tensor)
+               else C(x.re[i:i + chunk], x.im[i:i + chunk]))
             for i in range(0, x.shape[0], chunk)]
     return CfarOutput(threshold=torch.cat([o.threshold for o in outs]),
                       peaks=torch.cat([o.peaks for o in outs]))
@@ -797,6 +807,234 @@ def compare_mode(card: str) -> int:
           f"({_build.library_path().name})")
     print_tail_times(tail_times(torch.device("cuda", 0)), card)
     return 0
+
+
+# the signal sources: rsp_chain_vanilla's frames are tones of the start
+# word SRC_START plus each frame's offset (frame mod 8), so frame f peaks at
+# bin (SRC_START + f mod 8) * N / (4 * table_size) = 32 + 2 (f mod 8); the
+# fixed-point default runs one frame over SRC_STARTS
+SRC_START = 16
+SRC_STARTS = (8, 16, 24, 32, 48, 64, 100, 128)
+
+
+def source_paths(dev, card: str, cfg, plain_cfg, gcfg, gplain_cfg,
+                 sweep) -> list:
+    """Drive the source tops at the headline CPI through their entry
+    points, each path with the counters set to 0 just before it (``sweep``)
+    and every point held against the plain chain on the card:
+    ``rsp_chain_vanilla`` (float CA: Kernel B) on a [64, 256, 1024] CUDA
+    profile, checking each frame's peak bin; ``chain_with_mem`` on a
+    [64, 256, 1024] ROM of three tones and seeded noise under the default
+    ``ChainConfig()`` (Kernel C under GOS registers, B under CA registers)
+    and a CA elaboration; ``real_rx_chain`` on real [64, 256, 1024] frames
+    (tones at 1/8 and 1/4 and seeded noise), the tail at 512 cells; the
+    fixed-point default ``rsp_chain_vanilla()`` on one frame over
+    ``SRC_STARTS`` (no kernel). Then times each path and the NCO alone by
+    CUDA events. Returns the launches of each path."""
+    import numpy as np
+    import torch
+
+    import rsp_chains_tpu_torch as rsp
+    from rsp_chains_tpu_torch.kernels import _build
+    from rsp_chains_tpu_torch.ops.nco import dither_stream, nco
+
+    n = SHAPE[-1]
+    frames = SHAPE[0] * SHAPE[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    builds = _build.BUILDS
+
+    def frame_bins(out, bins, what):
+        """Every frame of ``out`` has a peak at each of its ``bins``."""
+        pk = out.peaks.reshape(frames, -1)
+        hit = torch.stack([pk[torch.arange(frames, device=dev), b]
+                           for b in bins])
+        missed = int((~hit.all(dim=0)).sum().item())
+        print(f"{what}: {frames - missed} of {frames} frames peak at their "
+              f"bins")
+        if missed:
+            raise AssertionError(f"{what}: {missed} frames miss their bins")
+
+    # ---- rsp_chain_vanilla, float CA, a CPI of tones ----
+    offs = (torch.arange(frames, device=dev) % 8).float()
+    tones = offs.reshape(SHAPE[0], SHAPE[1], 1).expand(SHAPE).contiguous()
+    walk = torch.randn(SHAPE, device=dev, generator=gen) * 40
+    tone_bins = [(2 * (SRC_START + offs)).long()]
+    van = rsp.rsp_chain_vanilla(cfg)
+    van_plain = rsp.rsp_chain_vanilla(plain_cfg)
+    assert van.stage_names == ("plfg_nco", "fft", "mag_cfar_fused"), \
+        van.stage_names
+    rt_v = rsp.RuntimeConfig.make(**HEADLINE, nco_freq_word=SRC_START,
+                                  plfg_profile=tones)
+    assert rt_v.plfg_profile is tones
+
+    def van_check(out, name, rt_s):
+        compare(out, van_plain(None, rt_s), f"rsp_chain_vanilla [{name}]")
+        if rt_s.plfg_profile is tones:
+            shift = [b + 2 * (rt_s.nco_freq_word - SRC_START)
+                     for b in tone_bins]
+            frame_bins(out, shift, f"rsp_chain_vanilla [{name}]")
+
+    van_launches = sweep("rsp_chain_vanilla path", [
+        ("CPI tones", rt_v, "mag_cfar"),
+        ("CPI tones, phase offset 100.25",
+         rt_v.merge_regs(phase_offset=100.25), "mag_cfar"),
+        ("CPI tones, start word 24", rt_v.merge_regs(nco_freq_word=24),
+         "mag_cfar"),
+        ("seeded walk profile", rt_v.merge_regs(plfg_profile=walk),
+         "mag_cfar")], lambda rt_s: van(None, rt_s), van_check)
+
+    # ---- chain_with_mem: a ROM CPI of three tones and seeded noise ----
+    i = torch.arange(n, device=dev, dtype=torch.float64)
+    noise = torch.sqrt(torch.rand(SHAPE, device=dev, generator=gen)
+                       + torch.rand(SHAPE, device=dev, generator=gen))
+    t_re = sum(a * torch.cos(2 * np.pi * f * i)
+               for a, f in ((0.4, 0.125), (0.2, 0.25), (0.1, 0.5)))
+    t_im = sum(a * torch.sin(2 * np.pi * f * i)
+               for a, f in ((0.4, 0.125), (0.2, 0.25), (0.1, 0.5)))
+    rom = rsp.C(torch.trunc((noise + t_re.float()) * 2 ** 13),
+                torch.trunc(t_im.float() * 2 ** 13).expand(SHAPE).contiguous())
+    mem = rsp.chain_with_mem(gcfg, rom)
+    mem_ca = rsp.chain_with_mem(cfg, rom)
+    mem_plain = rsp.chain_with_mem(plain_cfg, rom)
+    assert mem.stage_names == ("mem_rom", "fft", "mag_gos_cfar_fused"), \
+        mem.stage_names
+    rt = rsp.RuntimeConfig.make(**HEADLINE)
+    grt = rsp.RuntimeConfig.make(**GOS_REGS)
+
+    def mem_check(out, name, rt_s, top):
+        if top is mem:
+            want = chunked(lambda c: rsp.chain_with_mem(gplain_cfg, c)(
+                None, rt_s), rom)
+        else:
+            want = mem_plain(None, rt_s)
+        compare(out, want, f"chain_with_mem [{name}]")
+        if rt_s.mem_start_reading == 0:
+            if bool(out.peaks.any()) or bool(out.threshold.any()):
+                raise AssertionError("the read gate is off and a cell fired")
+            print(f"chain_with_mem [{name}]: no detections")
+        else:
+            frame_bins(out, (128, 256, 512), f"chain_with_mem [{name}]")
+
+    mem_launches = sweep("chain_with_mem path", [
+        ("GOSCA, GOS registers", grt, "mag_gos_cfar", mem),
+        ("GOSCA, GOS CASH", grt.merge_regs(cfar_mode=3, sub_window_size=8),
+         "mag_gos_cfar", mem),
+        ("GOSCA, CA registers", rt, "mag_cfar", mem),
+        ("CA elaboration", rt, "mag_cfar", mem_ca),
+        ("GOSCA, read gate off", rt.merge_regs(mem_start_reading=0),
+         "mag_cfar", mem)], lambda rt_s, top: top(None, rt_s), mem_check)
+
+    # ---- real_rx_chain: real frames, the tail at N / 2 ----
+    real = (3000 * torch.cos(2 * np.pi * i / 8)
+            + 2000 * torch.cos(2 * np.pi * i / 4)).float() + 20 * torch.randn(
+                SHAPE, device=dev, generator=gen)
+    rx = rsp.real_rx_chain(gcfg)
+    rx_ca = rsp.real_rx_chain(cfg)
+    rx_plain = rsp.real_rx_chain(plain_cfg)
+    assert rx.stage_names == ("rfft", "mag_gos_cfar_fused"), rx.stage_names
+    rt_rx = rt.merge_regs(cfar_fft_size=n // 2)
+    grt_rx = grt.merge_regs(cfar_fft_size=n // 2)
+
+    def rx_check(out, name, rt_s, top):
+        if out.threshold.shape != SHAPE[:-1] + (n // 2,):
+            raise AssertionError(f"real_rx_chain [{name}]: shape "
+                                 f"{tuple(out.threshold.shape)}")
+        if top is rx:
+            want = chunked(lambda c: rsp.real_rx_chain(gplain_cfg)(c, rt_s),
+                           real)
+        else:
+            want = rx_plain(real, rt_s)
+        compare(out, want, f"real_rx_chain [{name}]")
+        frame_bins(out, (128, 256), f"real_rx_chain [{name}]")
+
+    rx_launches = sweep("real_rx_chain path", [
+        ("GOSCA, GOS registers", grt_rx, "mag_gos_cfar", rx),
+        ("GOSCA, CA registers", rt_rx, "mag_cfar", rx),
+        ("CA elaboration", rt_rx, "mag_cfar", rx_ca)],
+        lambda rt_s, top: top(real, rt_s), rx_check)
+
+    # ---- rsp_chain_vanilla() at its defaults: fixed point, plain ops ----
+    van0 = rsp.rsp_chain_vanilla()
+    van0_cpu = rsp.rsp_chain_vanilla(device="cpu")
+    assert van0.stage_names == ("plfg_nco", "fft", "logmag", "cfar")
+
+    def van0_check(out, name, rt_s):
+        cpu = van0_cpu(None, rt_s)
+        compare(out, rsp.CfarOutput(threshold=cpu.threshold.to(dev),
+                                    peaks=cpu.peaks.to(dev)),
+                f"rsp_chain_vanilla() [{name}] vs the CPU")
+        got = torch.nonzero(out.peaks).flatten().tolist()
+        if got != [2 * rt_s.nco_freq_word]:
+            raise AssertionError(f"rsp_chain_vanilla() [{name}]: peaks {got}")
+        print(f"rsp_chain_vanilla() [{name}]: peaks {got}")
+
+    van0_launches = sweep("rsp_chain_vanilla() path", [
+        (f"start {s}", rsp.RuntimeConfig.make(**HEADLINE, nco_freq_word=s),
+         None) for s in SRC_STARTS], lambda rt_s: van0(None, rt_s),
+        van0_check)
+    if _build.BUILDS != builds:
+        raise AssertionError("a source register write rebuilt the library")
+
+    # ---- times: the paths and the NCO alone ----
+    def chunk_ms(fn, v):
+        return time_ms(lambda: chunked(fn, v), calls=10, warm=1)
+
+    rt0 = rsp.RuntimeConfig.make(**HEADLINE, nco_freq_word=SRC_START)
+    times = {
+        "rsp_chain_vanilla float CA, CPI profile": (
+            time_ms(lambda: van(None, rt_v)),
+            time_ms(lambda: van_plain(None, rt_v), calls=10, warm=1)),
+        "chain_with_mem GOSCA, GOS registers": (
+            time_ms(lambda: mem(None, grt)),
+            chunk_ms(lambda c: rsp.chain_with_mem(gplain_cfg, c)(None, grt),
+                     rom)),
+        "chain_with_mem GOSCA, CA registers": (
+            time_ms(lambda: mem(None, rt)),
+            chunk_ms(lambda c: rsp.chain_with_mem(gplain_cfg, c)(None, rt),
+                     rom)),
+        "real_rx_chain GOSCA, GOS registers": (
+            time_ms(lambda: rx(real, grt_rx)),
+            chunk_ms(lambda c: rsp.real_rx_chain(gplain_cfg)(c, grt_rx),
+                     real)),
+        "real_rx_chain GOSCA, CA registers": (
+            time_ms(lambda: rx(real, rt_rx)),
+            chunk_ms(lambda c: rsp.real_rx_chain(gplain_cfg)(c, rt_rx),
+                     real)),
+    }
+    for name, (ms, plain_ms) in times.items():
+        print(f"source {name} at {'x'.join(map(str, SHAPE))}: {ms:.4f} ms = "
+              f"{frames * n / ms / 1e3:.1f} Msamples/s; plain chain "
+              f"{plain_ms:.4f} ms; card {card}")
+    print(f"source rsp_chain_vanilla() default, one frame of {n}: "
+          f"{time_ms(lambda: van0(None, rt0)):.4f} ms; card {card}")
+    profile(lambda: van(None, rt_v), "rsp_chain_vanilla float CA, CPI "
+            "profile", van.stage_names)
+    profile(lambda: rx(real, grt_rx), "real_rx_chain GOSCA, GOS registers",
+            rx.stage_names)
+    # the NCO alone on the CPI's words: 4 B a sample in, 8 out
+    words = tones + float(SRC_START)
+    nco_bytes = words.numel() * (4 + 8)
+    nco_bound = nco_bytes / HBM_BYTES_PER_S * 1e3
+    dither_stream.cache_clear()
+    t = time.perf_counter()
+    dither_stream(0x5EED, SHAPE, dev)
+    torch.cuda.synchronize()
+    print(f"NCO dither stream built on the card for "
+          f"{'x'.join(map(str, SHAPE))}: {(time.perf_counter() - t) * 1e3:.1f} "
+          f"ms once (host clock; cached after)")
+    for label, nco_cfg in (
+            ("float", cfg.nco),
+            ("quantized table", dataclasses.replace(cfg.nco,
+                                                    quantized_lut=True)),
+            ("quantized table, dither", dataclasses.replace(
+                cfg.nco, quantized_lut=True, dither_enable=True))):
+        ms = time_ms(lambda c=nco_cfg: nco(words, c, pair=True))
+        print(f"NCO {label} at {'x'.join(map(str, SHAPE))}: {ms:.4f} ms "
+              f"against its bound {nco_bound:.4f} ms ({nco_bytes / 1e6:.1f} "
+              f"MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+              f"{ms / nco_bound:.1f}x; card {card}")
+    profile(lambda: nco(words, cfg.nco, pair=True), "NCO float", ())
+    return [van_launches, mem_launches, rx_launches, van0_launches]
 
 
 def main() -> int:
@@ -1330,6 +1568,10 @@ def main() -> int:
         lambda out, name, rt_s, rt2_s: compare(
             out, plain2d_far(x, rt_s, rt2_s), f"rd_2d_cfar_chain [{name}]"))
 
+    # ---- the signal sources through their entry points ----
+    src_launches = source_paths(dev, card, cfg, plain_cfg, gcfg, gplain_cfg,
+                                sweep)
+
     # ---- the sharded chains on a mesh of virtual shards of the card ----
     from rsp_chains_tpu_torch import parallel as SP
     from rsp_chains_tpu_torch.kernels import halo as khalo
@@ -1517,7 +1759,7 @@ def main() -> int:
              int_bound_launches, split_launches, split_sweep_launches,
              wire_launches, rd_launches, rd_gos_launches,
              det_launches, pc_launches, rd_wire_launches, rd2_launches,
-             rd2_far_launches, *sharded.values())
+             rd2_far_launches, *src_launches, *sharded.values())
     launches = {k: sum(p.get(k, 0) for p in paths)
                 for k in ("chain_ca", "mag_cfar", "mag_gos_cfar", "chain_gos",
                           "wire_ca", "chain_int", "chain_int_gos",

@@ -39,17 +39,31 @@ class Stage:
     terminal: bool = False
 
 
+def _require_card(device: torch.device, what: str) -> None:
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what} the chain's device, CUDA, and no CUDA card is "
+            "available; build the chain with device='cpu' or pass CPU "
+            "tensors to run the plain versions on the CPU")
+
+
+def source_device(device=None) -> torch.device:
+    """The device of a source chain (``rsp_chain_vanilla``,
+    ``chain_with_mem``, ``real_rx_chain``), which builds its tensors there:
+    CUDA unless the caller names another; raises where that is CUDA and no
+    card is available."""
+    device = torch.device(device if device is not None else "cuda")
+    _require_card(device, "a source chain builds its tensors on")
+    return device
+
+
 def _host_to_device(x: Any, device: torch.device) -> Any:
     """A numpy array as a tensor on ``device``; anything else unchanged.
     Complex arrays become a ``C`` of float32 planes; uint32 words keep their
     bits as an int32 view."""
     if not isinstance(x, np.ndarray):
         return x
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "numpy input goes to the chain's device, CUDA, and no CUDA card "
-            "is available; build the chain with device='cpu' or pass CPU "
-            "tensors to run the plain versions on the CPU")
+    _require_card(device, "numpy input goes to")
     if np.iscomplexobj(x):
         return as_pair(x, device=device)
     if x.dtype == np.uint32:
@@ -91,3 +105,11 @@ class Chain:
         """API parity with the JAX package: PyTorch compiles nothing here, and
         a register write never rebuilds a kernel, so this is the chain."""
         return self
+
+
+def source_chain(cfg: ChainConfig, stages: Sequence[Stage],
+                 device=None) -> Chain:
+    """A chain whose first stage ignores its input and makes its own on the
+    chain's device (self-stimulus tops like ``RspChainVanilla``, which has
+    no external data input); call it with ``x = None``."""
+    return Chain(cfg, stages, device)

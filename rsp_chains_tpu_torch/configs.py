@@ -22,6 +22,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 class MagMode(enum.IntEnum):
@@ -135,6 +136,11 @@ class NcoConfig:
     quantized_lut: bool = False
     sync_rom_enable: bool = False
 
+    @property
+    def amplitude(self) -> float:
+        """The output scale, 2^(table_width - 2)."""
+        return float(2 ** (self.table_width - 2))
+
 
 @dataclass(frozen=True)
 class FftConfig:
@@ -229,6 +235,17 @@ class DopplerConfig:
     scaling: FftScaling = FftScaling.DIV_N
 
 
+def _profile(p):
+    """A PLFG profile as float32: a tensor stays where it lies (a CPI's
+    profile on the card is not copied to the host on a register write), any
+    other array becomes numpy."""
+    if p is None:
+        return None
+    if isinstance(p, torch.Tensor):
+        return p.to(torch.float32)
+    return np.asarray(p, np.float32)
+
+
 @dataclass
 class RuntimeConfig:
     """The runtime register file as host values (see the module docstring).
@@ -256,7 +273,7 @@ class RuntimeConfig:
     cfar_fft_size: int
     mem_start_reading: int
     mem_run_last: int
-    plfg_profile: Optional[np.ndarray] = None
+    plfg_profile: Optional[np.ndarray | torch.Tensor] = None
 
     @staticmethod
     def make(
@@ -334,8 +351,7 @@ class RuntimeConfig:
             cfar_fft_size=int(cfar_fft_size),
             mem_start_reading=int(mem_start_reading),
             mem_run_last=int(mem_run_last),
-            plfg_profile=(None if plfg_profile is None
-                          else np.asarray(plfg_profile, np.float32)),
+            plfg_profile=_profile(plfg_profile),
         )
 
     @property

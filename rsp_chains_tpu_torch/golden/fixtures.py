@@ -11,6 +11,13 @@ import numpy as np
 DEFAULT_SEED = 11110
 
 
+def real_tone(num_samples: int, f: float, scale: int = 1,
+              amplitude: float = 2**14) -> np.ndarray:
+    """Real sinusoid, integer-truncated, amplitude 2^14/scale."""
+    i = np.arange(num_samples)
+    return np.trunc(np.sin(2 * np.pi * f * i) * amplitude / scale)
+
+
 def complex_tone(num_samples: int, f: float, scale: int = 1,
                  amplitude: float = 2**13) -> np.ndarray:
     """Complex sinusoid, integer-truncated, amplitude 2^13/scale."""
@@ -61,6 +68,29 @@ def lfm_chirp(num_samples: int, f0: float = 0.0, f1: float = 0.25,
     k = (f1 - f0) / num_samples
     phase = 2 * np.pi * (f0 * t + 0.5 * k * t * t)
     return amplitude * np.exp(1j * phase)
+
+
+BARKER_CODES = {
+    2: [1, -1], 3: [1, 1, -1], 4: [1, 1, -1, 1], 5: [1, 1, 1, -1, 1],
+    7: [1, 1, 1, -1, -1, 1, -1], 11: [1, 1, 1, -1, -1, -1, 1, -1, -1, 1, -1],
+    13: [1, 1, 1, 1, 1, -1, -1, 1, 1, -1, 1, -1, 1],
+}
+
+
+def barker_code(length: int, chip_samples: int = 1) -> np.ndarray:
+    """Barker phase code (a binary-phase pulse-compression waveform),
+    oversampled by ``chip_samples``."""
+    if length not in BARKER_CODES:
+        raise ValueError(f"no Barker code of length {length}; "
+                         f"choose from {sorted(BARKER_CODES)}")
+    code = np.asarray(BARKER_CODES[length], np.complex128)
+    return np.repeat(code, chip_samples)
+
+
+def frank_code(m: int) -> np.ndarray:
+    """Frank poly-phase code of length m^2."""
+    i, j = np.meshgrid(np.arange(m), np.arange(m), indexing="ij")
+    return np.exp(2j * np.pi * i * j / m).reshape(-1)
 
 
 def chirp_with_targets(

@@ -85,3 +85,17 @@ def fft_op(x: CLike, log2_fft_size: Optional[int] = None,
     if pad:
         y = torch.nn.functional.pad(y, (0, pad))
     return like(x, C(y.real.contiguous(), y.imag.contiguous()))
+
+
+def rfft_op(x, pair: bool = False):
+    """Real frames ``[..., n]`` (n a power of two; a tensor, or numpy on the
+    CPU) -> the n // 2 + 1 bins of their FFT, unscaled, as a ``C`` when
+    ``pair``, else complex64. The JAX package computes it with XLA ops (the
+    pack trick over an n/2-point transform), so ``torch.fft.rfft`` is its
+    port."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    n = x.shape[-1]
+    if n <= 0 or n & (n - 1):
+        raise ValueError(f"rfft length {n} is not a power of two")
+    y = torch.fft.rfft(x, dim=-1)
+    return C(y.real.contiguous(), y.imag.contiguous()) if pair else y

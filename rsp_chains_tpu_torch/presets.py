@@ -44,24 +44,37 @@ Doppler stages and the tail. ``rx_rd_tx_chain`` wraps it in the wire format;
 ``beamformed_rd_chain`` puts beams in front of it; ``integrated_search_chain``
 integrates pulses instead of a Doppler filter bank.
 
+The self-stimulus tops make their own input (call them with ``x = None``)
+and, as in JAX, run ``core_stages``, never Kernels A or D:
+``rsp_chain_vanilla`` (``RspChainVanilla``: PLFG -> NCO -> FFT -> magnitude
+-> CFAR; its default fixed-point elaboration takes the plain ops, a float
+CA one Kernel B, a GOSCA one Kernel B or C, a bit-true one
+``fft_mag_cfar_int_fused``) and ``chain_with_mem`` (a stored ROM frame,
+gated by ``mem_start_reading``). ``real_rx_chain`` takes real ADC frames
+through ``rfft_op`` and runs the tail (Kernel B or C) at N / 2.
+
 Every preset takes ``device``: where numpy input goes, CUDA unless the
-caller passes ``device="cpu"`` (``chain.Chain``).
+caller passes ``device="cpu"`` (``chain.Chain``). The source tops build their
+tensors there when they are built, and so raise without a card unless
+``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
 from . import packing
-from .chain import Chain, Stage
+from .chain import Chain, Stage, source_chain, source_device
 from .configs import (
-    ChainConfig, DopplerConfig, FftConfig, MatchedFilterConfig, RuntimeConfig,
+    ChainConfig, DopplerConfig, FftConfig, FixedPointConfig,
+    MatchedFilterConfig, RuntimeConfig,
 )
 from .cplx import C, as_pair, join
-from .golden.fixtures import lfm_chirp
+from .golden.fixtures import lfm_chirp, three_tone_signal
 from .kernels.cfar import (
     GOS_TILE, fused_mag_gos_dispatch, fused_tail_kind, mag_cfar,
 )
@@ -75,12 +88,14 @@ from .ops.beamform import beamform, fft_beamform, ula_steering
 from .ops.bit_true import cfar_int, fft_int_op, mag_int_op
 from .ops.cfar import CfarOutput, cfar_op
 from .ops.doppler import doppler_fft
-from .ops.fft import fft_op
+from .ops.fft import fft_op, fft_scale, rfft_op
 from .ops.integrate import (
     binary_integration, coherent_integration, noncoherent_integration,
 )
 from .ops.logmag import logmag
 from .ops.matched_filter import h_planes, matched_filter, matched_filter_os
+from .ops.nco import nco
+from .ops.plfg import PlfgProgram, Segment, compile_program
 
 
 def _bit_true(cfg: ChainConfig) -> bool:
@@ -189,6 +204,110 @@ def fft_mag_cfar_chain(cfg: Optional[ChainConfig] = None,
             lambda x, rt: fused_chain_gos_op(x, rt, cfg.fft, cfg.cfar),
             terminal=True)], device)
     return Chain(cfg, [fft_stage(cfg), *tail_stages(cfg)], device)
+
+
+def plfg_nco_stage(cfg: ChainConfig, program: PlfgProgram,
+                   device) -> Stage:
+    """The self-stimulus source: the PLFG profile plus the start register
+    ``rt.nco_freq_word``, through the NCO (``nco.freq := plfg.streamNode``,
+    ``RspChain.scala:57``). The program is compiled once, to one frame on
+    ``device``; ``rt.plfg_profile``, where given, replaces it like a
+    chirp-RAM write on a running chain. Its last axis is the frame, its
+    leading axes the batch, and a tensor there is used where it lies when
+    that is ``device``. Returns a ``C`` of ``[..., max_size]``."""
+    n = cfg.fft.max_size
+    profile = torch.from_numpy(compile_program(program, cfg.plfg, n)).to(device)
+
+    def fn(_, rt: RuntimeConfig):
+        prof = profile
+        if rt.plfg_profile is not None:
+            if rt.plfg_profile.shape[-1] != n:
+                raise ValueError(
+                    "plfg_profile must be compiled to the elaborated frame "
+                    f"length ({n}); use ops.plfg.compile_program")
+            prof = torch.as_tensor(rt.plfg_profile, dtype=torch.float32,
+                                   device=device)
+        return nco(prof + float(rt.nco_freq_word), cfg.nco,
+                   phase_offset=rt.phase_offset, pair=True)
+
+    return Stage("plfg_nco", fn)
+
+
+def rsp_chain_vanilla(cfg: Optional[ChainConfig] = None,
+                      program: Optional[PlfgProgram] = None,
+                      device=None) -> Chain:
+    """The self-stimulus chain PLFG -> NCO -> FFT -> magnitude -> CFAR
+    (``RspChainVanilla``, ``RspChain.scala:39-61``), called with ``x = None``.
+    The default elaboration is the reference's integer fixed point
+    (``FixedPointConfig(enabled=True, width=16, bin_point=0)``), whose
+    16-bit grid floors the float noise under a pure tone; the default
+    program is one constant segment of 2^max_num_samples_width samples,
+    repeated to fill the frame."""
+    if cfg is None:
+        cfg = ChainConfig(
+            fixed_point=FixedPointConfig(enabled=True, width=16, bin_point=0))
+    if program is None:
+        seg = 1 << cfg.plfg.max_num_samples_width
+        program = PlfgProgram(
+            chirps=((Segment(num_samples=min(seg, cfg.fft.max_size)),),),
+            repeat_counts=(max(1, cfg.fft.max_size // seg),),
+            chirp_ordinals=(0,))
+    device = source_device(device)
+    return source_chain(
+        cfg, [plfg_nco_stage(cfg, program, device), *core_stages(cfg)], device)
+
+
+def chain_with_mem(cfg: Optional[ChainConfig] = None, rom=None,
+                   device=None) -> Chain:
+    """The ROM-stimulus top (``ChainWithMem`` + ``MemForTestingFFT``): a
+    stored frame, by default the three tones at 1/8, 1/4 and 1/2 with noise
+    at 2^13, through the core chain; called with ``x = None``. The ROM, of
+    any leading shape ``[..., max_size]``, goes to ``device`` once.
+    ``rt.mem_start_reading`` gates it: at 0 the stage gives a zero frame,
+    so no detections (``MemForTesting.scala:81-85``)."""
+    cfg = cfg or ChainConfig()
+    if rom is None:
+        rom = three_tone_signal(cfg.fft.max_size, shift_range_factor=13)
+    device = source_device(device)
+    stored = as_pair(rom, device=device)
+
+    def mem_fn(_, rt: RuntimeConfig):
+        if rt.mem_start_reading != 0:
+            return stored
+        return C(torch.zeros_like(stored.re), torch.zeros_like(stored.im))
+
+    return source_chain(cfg, [Stage("mem_rom", mem_fn), *core_stages(cfg)],
+                        device)
+
+
+def real_rx_chain(cfg: Optional[ChainConfig] = None, device=None) -> Chain:
+    """Real ADC frames ``[..., N]`` -> ``rfft_op`` -> the tail at N / 2
+    cells: the Nyquist bin is dropped so the CFAR frame stays a power of two,
+    and the bins are scaled as ``cfg.fft.scaling`` scales an N-point FFT.
+    ``RuntimeConfig.make(fft_size=N, cfar_fft_size=N // 2)`` is the matching
+    register setting. The transform has a static size; a window, expanding
+    stages and LSB-keep stages are refused, as JAX refuses them."""
+    cfg = cfg or ChainConfig()
+    n = cfg.fft.max_size
+    if cfg.fft.window is not None:
+        raise ValueError("real_rx_chain does not window the rfft; elaborate "
+                         "window=None (or pre-window the ADC frames)")
+    if cfg.fft.expand_logic is not None or _lsb_keep(cfg):
+        raise ValueError("per-stage expand/LSB-keep scaling has no analog in "
+                         "the rfft front end; use FftScaling")
+    half_cfg = dataclasses.replace(cfg, fft=dataclasses.replace(
+        cfg.fft, max_size=n // 2))
+    scale = fft_scale(n, cfg.fft)
+    device = source_device(device)
+
+    def rx(x, rt: RuntimeConfig):
+        y = rfft_op(x, pair=True)
+        re, im = y.re[..., : n // 2], y.im[..., : n // 2]
+        if scale != 1.0:
+            re, im = re * scale, im * scale
+        return C(re.contiguous(), im.contiguous())
+
+    return Chain(cfg, [Stage("rfft", rx), *tail_stages(half_cfg)], device)
 
 
 def _wire_rx_stage() -> Stage:

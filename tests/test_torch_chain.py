@@ -243,6 +243,7 @@ def test_fixed_point_elaborations_match_jax(cfg_j, stages):
 
 def test_package_imports_no_jax():
     code = ("import sys, rsp_chains_tpu_torch; "
+            "import rsp_chains_tpu_torch.ops.nco, rsp_chains_tpu_torch.ops.plfg; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'rsp_chains_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
