@@ -48,6 +48,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    detection with the read gate off), ``real_rx_chain`` on real CPI
    frames (the tail at 512 cells), and the fixed-point default
    ``rsp_chain_vanilla()`` on one frame over its start words (no kernel);
+   then the serving and control plane (``serving_paths``): the JAX bench's
+   wire stream (16 x 256 frames of 1024 words from seed 5,
+   ``bench.py:130-262``) through ``StreamingPipeline`` on Kernel E, host-fed
+   through the C++ frame scanner and device-fed, the float headline stream
+   on Kernel A, a ``ControlServer`` poke halfway through a stream (each CPI
+   whole under one register file), ``ChainServer`` on the default
+   ``ChainConfig()`` (Kernel D) with a config frame and ``mem_run_last``, a
+   checkpoint resumed, ``compact_detections`` and the CLI, every output bit
+   for bit against direct calls, with their times (``serving`` lines);
    then the sharded chains (``rsp_chains_tpu_torch.parallel``) on meshes of virtual
    shards of the card, with the kernel halo (``use_rdma_halo``):
    ``range_sharded_mag_cfar`` on a 1 x 4 mesh and ``make_sharded_pipeline``
@@ -809,6 +818,16 @@ def compare_mode(card: str) -> int:
     return 0
 
 
+def headline_ca_config():
+    """The CA elaboration of the headline frames: Kernel A's."""
+    import rsp_chains_tpu_torch as rsp
+
+    return rsp.ChainConfig(
+        fft=rsp.FftConfig(max_size=SHAPE[-1]),
+        cfar=rsp.CfarConfig(max_ref_window=64, variant=rsp.CfarVariant.CA,
+                            include_cash=False, max_fft_size=SHAPE[-1]))
+
+
 # the signal sources: rsp_chain_vanilla's frames are tones of the start
 # word SRC_START plus each frame's offset (frame mod 8), so frame f peaks at
 # bin (SRC_START + f mod 8) * N / (4 * table_size) = 32 + 2 (f mod 8); the
@@ -1037,7 +1056,578 @@ def source_paths(dev, card: str, cfg, plain_cfg, gcfg, gplain_cfg,
     return [van_launches, mem_launches, rx_launches, van0_launches]
 
 
+# the serving phase: the JAX bench's wire stream (bench.py:130-262), 16 x 256
+# frames of 1024 beat words from seed 5, host-fed for WIRE_HOST_CPIS CPIs
+# through the C++ scanner and device-fed for WIRE_DEVICE_CPIS (waiting on
+# every WIRE_BLOCK_EVERY-th); the float headline stream of FLOAT_CPIS CPIs
+# (detections fetched every FLOAT_DET_EVERY); POKE_CPIS CPIs with a CA -> GO
+# poke halfway; SERVER_REQUESTS framed 1024-sample requests on each of two
+# connections to a ChainServer of the default ChainConfig()
+WIRE_SHAPE = (16, 256, 1024)
+WIRE_HOST_CPIS, WIRE_DEVICE_CPIS, WIRE_BLOCK_EVERY = 12, 40, 8
+FLOAT_CPIS, FLOAT_DET_EVERY, POKE_CPIS = 16, 4, 24
+SERVER_REQUESTS = 150
+
+
+def wait_for(cond, what: str, limit: float = 300.0) -> None:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > limit:
+            raise AssertionError(f"timed out after {limit} s waiting for "
+                                 f"{what}")
+        time.sleep(0.002)
+
+
+def phase_table(ph0: dict, ph1: dict, n: int) -> str:
+    return ", ".join(f"{k[2:]} {(ph1[k] - ph0[k]) / n * 1e3:.3f}"
+                     for k in ph1)
+
+
+def client_reply(sock, dec, pending):
+    """The next reply frame on ``sock`` (60 s at most)."""
+    t0 = time.perf_counter()
+    while not pending:
+        if time.perf_counter() - t0 > 60:
+            raise AssertionError("no reply within 60 s")
+        chunk = sock.recv(1 << 16)
+        if not chunk:
+            raise AssertionError("the server closed the connection")
+        pending.extend(dec.feed(chunk))
+    return pending.pop(0)
+
+
+def serve_clients(port: str, reqs_path: str, out_path: str) -> int:
+    """``--serve-clients PORT REQS OUT``: the ChainServer's two clients, run
+    by ``serving_paths`` in a process of their own. Connection c sends the
+    requests ``REQS[c]`` on channel c + 1, each waiting for its reply; then
+    connection 0 writes ``threshold_scaler`` and sends one request, writes
+    ``mem_run_last=0`` and sends one more. Saves each connection's reply
+    words and (seq, channel, last), the latencies and the wall time."""
+    import socket
+    import threading
+
+    import numpy as np
+
+    from rsp_chains_tpu_torch.io import framing
+
+    reqs = np.load(reqs_path)
+
+    def config_frame(kw):
+        payload = json.dumps(kw).encode() + b"\0"
+        payload += b"\0" * ((-len(payload)) % 4)
+        return framing.encode_frame(np.frombuffer(payload, np.uint32), 0,
+                                    config=True)
+
+    replies, lat, errors = {}, [], []
+
+    def client(c):
+        try:
+            with socket.create_connection(("127.0.0.1", int(port)),
+                                          timeout=60) as sock:
+                sock.settimeout(60)
+                dec, pending, mine = framing.FrameDecoder(), [], []
+                for i, iq in enumerate(reqs[c]):
+                    t = time.perf_counter()
+                    sock.sendall(framing.encode_iq_frame(iq, i, last=True,
+                                                         channel=c + 1))
+                    mine.append(client_reply(sock, dec, pending))
+                    lat.append(time.perf_counter() - t)
+                if c == 0:
+                    for seq, kw, iq in ((1000, {"threshold_scaler": 5.0},
+                                         reqs[0][0]),
+                                        (1001, {"mem_run_last": 0},
+                                         reqs[0][1])):
+                        sock.sendall(config_frame(kw))
+                        sock.sendall(framing.encode_iq_frame(iq, seq,
+                                                             channel=1))
+                        mine.append(client_reply(sock, dec, pending))
+                replies[c] = mine
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    dt = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        print(f"a client failed: {errors}", file=sys.stderr)
+        return 1
+    out = {"lat": np.asarray(lat), "dt": np.asarray(dt)}
+    for c, mine in replies.items():
+        out[f"words{c}"] = np.stack([f.words for f in mine])
+        out[f"meta{c}"] = np.asarray([(f.seq, f.channel, f.last)
+                                      for f in mine])
+    np.savez(out_path, **out)
+    return 0
+
+
+def serving_paths(dev, card: str, cfg) -> list:
+    """The serving and control plane on the card, each path with the
+    counters set to 0 just before it and read just after: the JAX bench's
+    wire stream through ``StreamingPipeline`` on Kernel E, host-fed (the
+    C++ scanner recovers each CPI from one CRC byte stream) and device-fed;
+    the float headline stream on Kernel A; a ``ControlServer`` poke of
+    ``cfar_mode`` halfway through a stream; ``ChainServer`` on the default
+    ``ChainConfig()`` (Kernel D) over two connections from a client process
+    (``--serve-clients``) with a config frame and a ``mem_run_last`` write,
+    beside one frame through the chain directly and through the pipeline
+    alone; a checkpoint of a half-filled
+    ``CpiBuffer`` with the live registers, resumed; ``compact_detections``
+    on the headline output against its CPU run; the CLI's ``selftest``,
+    ``run`` and ``bench`` in this process. Every output is held bit for bit
+    against direct calls of the same chain, and the direct calls at the
+    shapes that only this phase gives a kernel (E's wire CPI, D's one
+    frame) against the plain versions at the bar. Returns the launches of
+    each path."""
+    import contextlib
+    import io
+    import socket
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    import rsp_chains_tpu_torch as rsp
+    from rsp_chains_tpu_torch import cli
+    from rsp_chains_tpu_torch.io import StreamingPipeline, framing, native
+    from rsp_chains_tpu_torch.io.control import ControlServer, poke
+    from rsp_chains_tpu_torch.io.cpi import CpiBuffer, load_state
+    from rsp_chains_tpu_torch.io.server import ChainServer
+    from rsp_chains_tpu_torch.kernels import _build
+    from rsp_chains_tpu_torch.kernels import chain as kchain
+    from rsp_chains_tpu_torch.ops.detect import compact_detections
+    from rsp_chains_tpu_torch.ops.fft import fft_op
+    from rsp_chains_tpu_torch.ops.logmag import logmag
+
+    launched = _build.LAUNCHES
+    paths = []
+    native._load()
+    if not native.HAVE_NATIVE:
+        raise AssertionError("the C++ frame scanner did not build (g++)")
+    rt = rsp.RuntimeConfig.make(**HEADLINE)
+
+    def check(pipe, n, what):
+        st = pipe.stats
+        if (st.frames_out, st.frames_failed, st.frames_dropped) != (n, 0, 0):
+            raise AssertionError(f"{what}: {st.frames_out} out, "
+                                 f"{st.frames_failed} failed, "
+                                 f"{st.frames_dropped} dropped of {n}")
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def took(path, want: dict):
+        got = {k: v for k, v in launched.items() if v}
+        print(f"serving {path} launches: {got}")
+        if got != want:
+            raise AssertionError(f"serving {path} took {got}, not {want}")
+        paths.append(got)
+
+    # ---- the JAX bench's wire stream on Kernel E ----
+    ch, p, n = WIRE_SHAPE
+    rng = np.random.RandomState(5)
+    re = rng.randint(-20000, 20000, (ch * p, n)).astype(np.int32)
+    im = rng.randint(-20000, 20000, (ch * p, n)).astype(np.int32)
+    w_np = ((re.astype(np.uint16).astype(np.uint32) << 16)
+            | im.astype(np.uint16).astype(np.uint32))
+    stream_bytes = b"".join(framing.encode_frame(w_np[i], i)
+                            for i in range(ch * p))
+    wire = rsp.rx_fft_mag_cfar_tx_chain(cfg, device=dev)
+    assert wire.stage_names == ("rx_fft_mag_cfar_tx_fused",), wire.stage_names
+    probe = w_np.reshape(WIRE_SHAPE)
+    dev_words = torch.from_numpy(probe.view(np.int32)).to(dev)
+    direct = wire(probe, rt)
+    compare_words(direct, kchain.wire_ca_reference(dev_words, rt, cfg.fft,
+                                                   cfg.cfar),
+                  n.bit_length() - 1, f"serving wire CPI "
+                  f"{'x'.join(map(str, WIRE_SHAPE))}: wire_ca vs "
+                  f"wire_ca_reference")
+    samples = probe.size
+    # one CPI's words from a pinned host tensor to the card
+    pinned = torch.from_numpy(probe.view(np.int32)).pin_memory()
+    h2d = []
+    for _ in range(5):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        pinned.to(dev, non_blocking=True)
+        b.record()
+        b.synchronize()
+        h2d.append(a.elapsed_time(b))
+    h2d_ms = statistics.median(h2d)
+    print(f"serving pinned host-to-device copy of one wire CPI "
+          f"({pinned.nbytes / 1e6:.1f} MB): {h2d_ms:.4f} ms = "
+          f"{pinned.nbytes / 1e6 / (h2d_ms / 1e3):.0f} MB/s (median of "
+          f"5, CUDA events); card {card}")
+    del pinned
+
+    def differs(store, want):
+        """on_result keeping each CPI's count of words unlike ``want``,
+        summed on the pipeline's stream: the outputs themselves are freed,
+        as a serving consumer frees them"""
+        return lambda s, o, m: store.__setitem__(s, (o != want).sum())
+
+    def all_equal(store, n, what):
+        bad = sum(bool(int(v)) for v in store.values())
+        if len(store) != n or bad:
+            raise AssertionError(f"{what}: {bad} of {len(store)} CPIs differ "
+                                 f"from the direct call ({n} expected)")
+
+    outs = {}
+    launched.clear()
+    pipe = StreamingPipeline(wire, rt, depth=8, block_every=WIRE_BLOCK_EVERY,
+                             on_result=differs(outs, direct))
+    with pipe:
+        pipe.submit(-1, dev_words)          # warm the dispatch path
+        wait_for(lambda: -1 in outs, "the device-fed warm-up CPI")
+        ph0 = pipe.stats.phase_totals()
+        t0 = time.perf_counter()
+        for k in range(WIRE_DEVICE_CPIS):
+            pipe.submit(k, dev_words)
+        wait_for(lambda: WIRE_DEVICE_CPIS - 1 in outs, "the device-fed CPIs")
+        sync()
+        dt = time.perf_counter() - t0
+        ph1 = pipe.stats.phase_totals()
+    check(pipe, WIRE_DEVICE_CPIS + 1, "device-fed wire stream")
+    all_equal(outs, WIRE_DEVICE_CPIS + 1, "device-fed wire stream")
+    took("wire stream, device-fed", {"wire_ca": WIRE_DEVICE_CPIS + 1})
+    print(f"serving wire stream {'x'.join(map(str, WIRE_SHAPE))}, "
+          f"device-fed, {WIRE_DEVICE_CPIS} CPIs, block_every "
+          f"{WIRE_BLOCK_EVERY}: {dt / WIRE_DEVICE_CPIS * 1e3:.4f} ms per CPI "
+          f"= {WIRE_DEVICE_CPIS * samples / dt / 1e6:.1f} Msamples/s; phase "
+          f"ms per CPI: {phase_table(ph0, ph1, WIRE_DEVICE_CPIS)}; card "
+          f"{card}")
+
+    outs.clear()
+    launched.clear()
+    t_scan = 0.0
+    pipe = StreamingPipeline(wire, rt, depth=4,
+                             on_result=differs(outs, direct))
+    t0 = time.perf_counter()
+    with pipe:
+        for k in range(WIRE_HOST_CPIS):
+            ts = time.perf_counter()
+            metas, _, skipped = native.scan_frames(stream_bytes, n,
+                                                   max_frames=ch * p)
+            if len(metas) != ch * p or skipped:
+                raise AssertionError(f"scan found {len(metas)} frames, "
+                                     f"skipped {skipped} bytes")
+            rows = np.frombuffer(stream_bytes, np.uint32).reshape(ch * p, -1)
+            off = metas[0][0] // 4
+            words = rows[:, off:off + n].reshape(WIRE_SHAPE)
+            t_scan += time.perf_counter() - ts
+            pipe.submit(k, words)
+        wait_for(lambda: len(outs) + pipe.stats.frames_failed
+                 >= WIRE_HOST_CPIS, "the host-fed CPIs")
+        sync()
+        dt = time.perf_counter() - t0
+    check(pipe, WIRE_HOST_CPIS, "host-fed wire stream")
+    all_equal(outs, WIRE_HOST_CPIS, "host-fed wire stream")
+    took("wire stream, host-fed", {"wire_ca": WIRE_HOST_CPIS})
+    print(f"serving wire stream {'x'.join(map(str, WIRE_SHAPE))}, host-fed "
+          f"(C++ scan of the {len(stream_bytes) / 1e6:.1f} MB CRC stream, "
+          f"pinned ring), {WIRE_HOST_CPIS} CPIs: "
+          f"{dt / WIRE_HOST_CPIS * 1e3:.4f} ms per CPI = "
+          f"{WIRE_HOST_CPIS * samples / dt / 1e6:.1f} Msamples/s; scan "
+          f"{t_scan / WIRE_HOST_CPIS * 1e3:.4f} ms per CPI; phase ms per "
+          f"CPI: {pipe.stats.phase_ms_per_cpi()}; card {card}")
+    del outs, direct, dev_words
+
+    # ---- the float headline stream on Kernel A ----
+    chain = rsp.fft_mag_cfar_chain(cfg, device=dev)
+    assert chain.stage_names == ("fft_mag_cfar_fused",), chain.stage_names
+    gen = np.random.default_rng(SEED + 10)
+    cpis = []
+    for _ in range(FLOAT_CPIS):
+        c = np.empty(SHAPE, np.complex64)
+        c.real = gen.standard_normal(SHAPE, np.float32)
+        c.imag = gen.standard_normal(SHAPE, np.float32)
+        cpis.append(c)
+    go = rt.merge_regs(cfar_mode=1)
+    want = [chain(c, rt) for c in cpis]
+    want_go = [chain(c, go) for c in cpis]
+    total = sum(int(w.peaks.sum()) for w in want)
+    sync()
+
+    def against(store, regs_want):
+        """on_result keeping, for each register file's direct results, the
+        count of cells where the CPI differs (threshold and peaks)"""
+        def keep(s, o, m):
+            store[s] = [(o.threshold != w[s % FLOAT_CPIS].threshold).sum()
+                        + (o.peaks != w[s % FLOAT_CPIS].peaks).sum()
+                        for w in regs_want]
+        return keep
+
+    got = {}
+    launched.clear()
+    pipe = StreamingPipeline(chain, rt, detections_every=FLOAT_DET_EVERY,
+                             on_result=against(got, [want]))
+    t0 = time.perf_counter()
+    with pipe:
+        for k, c in enumerate(cpis):
+            pipe.submit(k, c)
+        wait_for(lambda: len(got) + pipe.stats.frames_failed >= FLOAT_CPIS,
+                 "the float CPIs")
+        sync()
+        dt = time.perf_counter() - t0
+    check(pipe, FLOAT_CPIS, "float headline stream")
+    all_equal({k: v[0] for k, v in got.items()}, FLOAT_CPIS,
+              "float headline stream")
+    if pipe.detections_total != total:
+        raise AssertionError(f"detections_total {pipe.detections_total} != "
+                             f"{total}")
+    took("float headline stream", {"chain_ca": FLOAT_CPIS})
+    print(f"serving float headline stream {'x'.join(map(str, SHAPE))}, "
+          f"host-fed complex64, {FLOAT_CPIS} CPIs: "
+          f"{dt / FLOAT_CPIS * 1e3:.4f} ms per CPI = "
+          f"{FLOAT_CPIS * SHAPE[0] * SHAPE[1] * SHAPE[2] / dt / 1e6:.1f} "
+          f"Msamples/s; detections_total {pipe.detections_total} (exact, "
+          f"fetched every {FLOAT_DET_EVERY}); phase ms per CPI: "
+          f"{pipe.stats.phase_ms_per_cpi()}; card {card}")
+
+    # ---- a poke of cfar_mode CA -> GO halfway through a stream ----
+    got = {}
+    builds = _build.BUILDS
+    launched.clear()
+    pipe = StreamingPipeline(chain, rt,
+                             on_result=against(got, [want, want_go]))
+    with pipe, ControlServer(lambda: pipe.runtime, pipe.reconfigure,
+                             cfar_cfg=cfg.cfar,
+                             update_rt=pipe.update_runtime) as ctrl:
+        for k in range(POKE_CPIS):
+            if k == POKE_CPIS // 2:
+                poke("127.0.0.1", ctrl.port, {"cfar_mode": 1})
+            pipe.submit(k, cpis[k % FLOAT_CPIS])
+        wait_for(lambda: len(got) + pipe.stats.frames_failed >= POKE_CPIS,
+                 "the poked stream")
+        live = pipe.runtime
+    check(pipe, POKE_CPIS, "poked stream")
+    side = []
+    for k in range(POKE_CPIS):
+        old, new = (int(v) == 0 for v in got[k])
+        if old == new:
+            raise AssertionError(f"poked CPI {k} equals "
+                                 f"{'both' if old else 'neither'} register "
+                                 f"file's direct result")
+        side.append(new)
+    switch = side.index(True) if True in side else POKE_CPIS
+    if side != [False] * switch + [True] * (POKE_CPIS - switch) or \
+            switch > POKE_CPIS // 2:
+        raise AssertionError(f"the poke did not land once at a CPI "
+                             f"boundary: {side}")
+    if _build.BUILDS != builds or live.cfar_mode != 1:
+        raise AssertionError("the poke rebuilt the library or was lost")
+    took("poked stream", {"chain_ca": POKE_CPIS})
+    print(f"serving poke cfar_mode CA -> GO sent before CPI "
+          f"{POKE_CPIS // 2} of {POKE_CPIS}: landed whole from CPI {switch} "
+          f"(old registers before, new after, each CPI equal to one direct "
+          f"result); library builds {_build.BUILDS}")
+
+    # ---- a checkpoint of a half-filled CPI buffer, resumed ----
+    with tempfile.TemporaryDirectory() as tmp:
+        buf = CpiBuffer(num_pulses=SHAPE[1], n_range=SHAPE[2],
+                        channels=SHAPE[0])
+        half = SHAPE[1] // 2
+        for k in range(half):
+            buf.push(cpis[0][:, k])
+        launched.clear()
+        res = {}
+        pipe = StreamingPipeline(chain, live, on_result=lambda s, o, m:
+                                 res.__setitem__(s, o))
+        pipe.checkpoint(f"{tmp}/ckpt", buf, cursor=half)
+        buf2 = CpiBuffer(num_pulses=SHAPE[1], n_range=SHAPE[2],
+                         channels=SHAPE[0])
+        rt2, extras = load_state(f"{tmp}/ckpt", buf2)
+        pipe2 = StreamingPipeline(chain, rt2, on_result=lambda s, o, m:
+                                  res.__setitem__(s + 1, o))
+        for pp, b in ((pipe, buf), (pipe2, buf2)):
+            with pp:
+                for k in range(half, SHAPE[1]):
+                    cpi = b.push(cpis[0][:, k])
+                pp.submit(0, cpi)
+                wait_for(lambda: len(res) + pp.stats.frames_failed
+                         >= (1 if pp is pipe else 2), "the resumed CPI")
+            check(pp, 1, "checkpoint resume")
+    if not (rt2.peek() == live.peek() and int(extras["cursor"]) == half
+            and torch.equal(res[0].threshold, res[1].threshold)
+            and torch.equal(res[0].peaks, res[1].peaks)
+            and torch.equal(res[0].threshold, want_go[0].threshold)):
+        raise AssertionError("the resumed pipeline differs from the original")
+    took("checkpoint resume", {"chain_ca": 2})
+    print(f"serving checkpoint of a {SHAPE[0]}-channel CpiBuffer at pulse "
+          f"{half} of {SHAPE[1]} with the live registers (cfar_mode "
+          f"{rt2.cfar_mode}): resumed, the CPI equal bit for bit")
+
+    # ---- compact_detections on the headline output ----
+    x0 = rsp.as_pair(cpis[0], device=dev)
+    mag = logmag(fft_op(x0, None, cfg.fft), rt.mag_mode, cfg.mag)
+    dl = compact_detections(mag, want[0], 64)
+    dl_cpu = compact_detections(mag.cpu(), rsp.CfarOutput(
+        want[0].threshold.cpu(), want[0].peaks.cpu()), 64)
+    for a, b in zip(dl, dl_cpu):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("compact_detections on the card differs "
+                                 "from its CPU run")
+    print(f"serving compact_detections, top 64 of {SHAPE[0] * SHAPE[1]} "
+          f"frames: equal to its CPU run; detections listed "
+          f"{int(dl.count.sum())}")
+    del cpis, want, want_go, got, res
+
+    # ---- ChainServer on the default ChainConfig(), Kernel D ----
+    gchain = rsp.fft_mag_cfar_chain(device=dev)
+    grt = rsp.RuntimeConfig.make(**GOS_REGS)
+    grng = np.random.RandomState(SEED + 11)
+    reqs = [[(grng.randn(n) * 300 + 1j * grng.randn(n) * 300).astype(
+        np.complex64) for _ in range(SERVER_REQUESTS)] for _ in range(2)]
+
+    launched.clear()
+    srv = ChainServer(gchain, grt, frame_len=n, log2_fft_size=10,
+                      cfar_cfg=gchain.cfg.cfar)
+    with srv, tempfile.TemporaryDirectory() as tmp:
+        # one request first: the pipeline's first CPI pays the warm-up
+        with socket.create_connection(("127.0.0.1", srv.port),
+                                      timeout=60) as warm:
+            warm.settimeout(60)
+            warm.sendall(framing.encode_iq_frame(reqs[1][0], 0, channel=9))
+            client_reply(warm, framing.FrameDecoder(), [])
+        # the clients run in a process of their own, as a server's clients
+        # do, so that their Python does not share the server's lock
+        np.save(f"{tmp}/reqs.npy", np.asarray(reqs))
+        proc = subprocess.run(
+            [sys.executable, __file__, "--serve-clients", str(srv.port),
+             f"{tmp}/reqs.npy", f"{tmp}/replies.npz"],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"the client process failed:\n"
+                                 f"{proc.stdout}{proc.stderr}")
+        check(srv._pipe, 2 * SERVER_REQUESTS + 3, "ChainServer")
+        if srv.config_errors or srv.results_dropped:
+            raise AssertionError("the server rejected a config frame or "
+                                 "dropped a result")
+        with np.load(f"{tmp}/replies.npz") as z:
+            got = {k: z[k] for k in z.files}
+    replies = {c: [framing.Frame(seq=int(m[0]), words=w, last=bool(m[2]),
+                                 channel=int(m[1]))
+                   for w, m in zip(got[f"words{c}"], got[f"meta{c}"])]
+               for c in range(2)}
+    lat, dt = list(got["lat"]), float(got["dt"])
+
+    def words_of(iq, r):
+        d = gchain(native.unpack_iq_c64(native.pack_iq_c64(iq))[None], r)
+        return rsp.packing.pack_cfar_words(d.threshold[0], d.peaks[0], 10
+                                           ).cpu().numpy().view(np.uint32)
+
+    launched_server = dict(launched)
+    hot = grt.merge_regs(threshold_scaler=5.0)
+    for c in range(2):
+        for i, f in enumerate(replies[c][:SERVER_REQUESTS]):
+            if (f.seq, f.channel, f.last) != (i, c + 1, True) or \
+                    not np.array_equal(f.words, words_of(reqs[c][i], grt)):
+                raise AssertionError(f"reply {i} of connection {c} is "
+                                     f"misrouted or differs")
+    cfg_reply, last_reply = replies[0][SERVER_REQUESTS:]
+    if not (cfg_reply.seq == 1000 and cfg_reply.last
+            and np.array_equal(cfg_reply.words, words_of(reqs[0][0], hot))
+            and not np.array_equal(cfg_reply.words,
+                                   words_of(reqs[0][0], grt))):
+        raise AssertionError("the config frame did not take effect from the "
+                             "next frame")
+    if not (last_reply.seq == 1001 and not last_reply.last
+            and np.array_equal(last_reply.words, words_of(reqs[0][1], hot))):
+        raise AssertionError("mem_run_last=0 did not clear FLAG_LAST")
+
+    def served(frames):
+        return torch.from_numpy(np.stack([f.words for f in frames]).view(
+            np.int32)).to(dev)
+
+    def plain_words(iqs, r):
+        x = rsp.as_pair(np.stack([native.unpack_iq_c64(native.pack_iq_c64(iq))
+                                  for iq in iqs]), device=dev)
+        d = kchain.chain_gos_reference(x, r, gchain.cfg.fft, gchain.cfg.cfar)
+        return rsp.packing.pack_cfar_words(d.threshold, d.peaks, 10)
+
+    # Kernel D served one frame a launch, against its plain version
+    compare_words(served(replies[0][:SERVER_REQUESTS]
+                         + replies[1][:SERVER_REQUESTS]),
+                  plain_words(reqs[0] + reqs[1], grt), 10,
+                  f"serving ChainServer's {2 * SERVER_REQUESTS} replies "
+                  f"(chain_gos on one frame) vs chain_gos_reference")
+    compare_words(served([cfg_reply, last_reply]),
+                  plain_words(reqs[0][:2], hot), 10,
+                  "serving ChainServer's replies after the config frame vs "
+                  "chain_gos_reference")
+    launched.clear()
+    launched.update(launched_server)
+    took("ChainServer", {"chain_gos": 2 * SERVER_REQUESTS + 3})
+    phases = srv.stats.phase_ms_per_cpi()
+    # the layers under a served frame: the chain called directly on one
+    # numpy frame, and the pipeline alone in a closed loop
+    one = native.unpack_iq_c64(native.pack_iq_c64(reqs[0][0]))[None]
+    launched.clear()
+    direct_s = []
+    for _ in range(SERVER_REQUESTS):
+        t = time.perf_counter()
+        gchain(one, grt).peaks.cpu()
+        direct_s.append(time.perf_counter() - t)
+    done = threading.Event()
+    pipe_s = []
+    pipe = StreamingPipeline(gchain, grt, on_result=lambda s, o, m: (
+        o.peaks.cpu(), done.set()))
+    with pipe:
+        for k in range(SERVER_REQUESTS):
+            done.clear()
+            t = time.perf_counter()
+            pipe.submit(k, one)
+            if not done.wait(timeout=60):
+                raise AssertionError("the pipeline did not answer in 60 s")
+            pipe_s.append(time.perf_counter() - t)
+    check(pipe, SERVER_REQUESTS, "closed-loop pipeline")
+    took("served-frame layers", {"chain_gos": 2 * SERVER_REQUESTS})
+
+    def pct(v):
+        v = sorted(v)
+        return (f"p50 {v[len(v) // 2] * 1e3:.3f} ms, p99 "
+                f"{v[int(len(v) * 0.99)] * 1e3:.3f} ms")
+
+    print(f"serving one {n}-sample frame, default ChainConfig(), GOS "
+          f"registers: the chain called directly (numpy in, peaks to the "
+          f"host) {pct(direct_s)}; the StreamingPipeline alone, closed loop "
+          f"{pct(pipe_s)}; the ChainServer's phase ms per request: {phases} "
+          f"(host clock); card {card}")
+    lat.sort()
+    print(f"serving ChainServer, default ChainConfig() (Kernel D), GOS "
+          f"registers, {2 * SERVER_REQUESTS} requests of {n} samples over "
+          f"two connections, each request waiting for its reply: "
+          f"{2 * SERVER_REQUESTS / dt:.1f} requests/s; latency p50 "
+          f"{lat[len(lat) // 2] * 1e3:.3f} ms, p99 "
+          f"{lat[int(len(lat) * 0.99)] * 1e3:.3f} ms (host clock); config "
+          f"frame and run_last took effect from the next frame; card {card}")
+
+    # ---- the CLI in this process ----
+    launched.clear()
+    for argv in (["selftest"], ["run"], ["bench", "--preset",
+                                         "fft_mag_cfar"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv + ["--device", dev.type])
+        for line in buf.getvalue().splitlines():
+            print(f"cli {' '.join(argv)}: {line}")
+        if rc != 0:
+            raise AssertionError(f"cli {' '.join(argv)} exited {rc}")
+    cli_launches = {k: v for k, v in launched.items() if v}
+    print(f"serving cli launches: {cli_launches}")
+    if cli_launches.get("chain_ca", 0) < 1:
+        raise AssertionError("the CLI's run and bench never launched Kernel A")
+    paths.append(cli_launches)
+    return paths
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--serve-clients"]:
+        return serve_clients(*sys.argv[2:])
     import numpy as np
     import torch
 
@@ -1080,10 +1670,7 @@ def main() -> int:
           f"({_build.library_path().name}); compiler report:")
     print(_build.build_log().strip())
 
-    cfg = rsp.ChainConfig(
-        fft=rsp.FftConfig(max_size=SHAPE[-1]),
-        cfar=rsp.CfarConfig(max_ref_window=64, variant=rsp.CfarVariant.CA,
-                            include_cash=False, max_fft_size=SHAPE[-1]))
+    cfg = headline_ca_config()
     plain_cfg = dataclasses.replace(
         cfg, cfar=dataclasses.replace(cfg.cfar, use_pallas=False))
     rng = np.random.RandomState(SEED)
@@ -1572,6 +2159,9 @@ def main() -> int:
     src_launches = source_paths(dev, card, cfg, plain_cfg, gcfg, gplain_cfg,
                                 sweep)
 
+    # ---- the serving and control plane ----
+    serve_launches = serving_paths(dev, card, cfg)
+
     # ---- the sharded chains on a mesh of virtual shards of the card ----
     from rsp_chains_tpu_torch import parallel as SP
     from rsp_chains_tpu_torch.kernels import halo as khalo
@@ -1759,7 +2349,8 @@ def main() -> int:
              int_bound_launches, split_launches, split_sweep_launches,
              wire_launches, rd_launches, rd_gos_launches,
              det_launches, pc_launches, rd_wire_launches, rd2_launches,
-             rd2_far_launches, *src_launches, *sharded.values())
+             rd2_far_launches, *src_launches, *serve_launches,
+             *sharded.values())
     launches = {k: sum(p.get(k, 0) for p in paths)
                 for k in ("chain_ca", "mag_cfar", "mag_gos_cfar", "chain_gos",
                           "wire_ca", "chain_int", "chain_int_gos",

@@ -244,6 +244,10 @@ def test_fixed_point_elaborations_match_jax(cfg_j, stages):
 def test_package_imports_no_jax():
     code = ("import sys, rsp_chains_tpu_torch; "
             "import rsp_chains_tpu_torch.ops.nco, rsp_chains_tpu_torch.ops.plfg; "
+            "import rsp_chains_tpu_torch.io, rsp_chains_tpu_torch.io.cpi, "
+            "rsp_chains_tpu_torch.io.server, rsp_chains_tpu_torch.cli, "
+            "rsp_chains_tpu_torch.ops.detect, "
+            "rsp_chains_tpu_torch.utils.profiling; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'rsp_chains_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,

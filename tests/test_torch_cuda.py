@@ -1751,3 +1751,123 @@ def test_source_tops_launch_b_or_c_by_the_registers(dev, regs, kernel):
         _assert_close(got, ref(x, r))
     off = mem(None, rt.merge_regs(mem_start_reading=0))
     assert not off.peaks.any()
+
+
+# ---- the serving plane on the card ----
+
+def _stream_cpis(n, seed=7, shape=(4, 64, 1024)):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(shape, np.float32)
+             + 1j * rng.standard_normal(shape, np.float32)).astype(np.complex64)
+            for _ in range(n)]
+
+
+def _wait_for(cond, what, limit=120):
+    import time
+
+    t0 = time.time()
+    while not cond():
+        assert time.time() - t0 < limit, f"timed out waiting for {what}"
+        time.sleep(0.002)
+
+
+@pytest.mark.parametrize("block_every", [1, 4])
+def test_the_pipeline_on_the_card_with_a_two_slot_ring_is_bit_equal(
+        dev, block_every):
+    """Host CPIs through the pinned ring of two slots, a slow consumer, the
+    copy stream and the compute stream: each CPI equals a direct call on
+    the card bit for bit and the plain chain within the bench bar, Kernel A
+    once a CPI, and the detection total is exact."""
+    import time
+
+    from rsp_chains_tpu_torch.io import StreamingPipeline
+
+    chain = rsp.fft_mag_cfar_chain(_cfg(1024))
+    rt = rsp.RuntimeConfig.make(fft_size=1024, div_sum=5)
+    cpis = _stream_cpis(12)
+    got = {}
+
+    def slow(seq, out, m):
+        time.sleep(0.02)
+        got[seq] = (out.threshold.clone(), out.peaks.clone())
+
+    pipe = StreamingPipeline(chain, rt, on_result=slow,
+                             block_every=block_every, detections_every=3)
+    _build.LAUNCHES.clear()
+    with pipe:
+        for s, c in enumerate(cpis):
+            pipe.submit(s, c)
+        _wait_for(lambda: len(got) == len(cpis), "every CPI")
+    assert _build.LAUNCHES["chain_ca"] == len(cpis)
+    assert pipe.stats.frames_failed == 0 and pipe.device_error is None
+    plain = rsp.fft_mag_cfar_chain(_plain(_cfg(1024)))
+    total = 0
+    for s, c in enumerate(cpis):
+        want = chain(c, rt)
+        assert torch.equal(got[s][0], want.threshold)
+        assert torch.equal(got[s][1], want.peaks)
+        _assert_close(rsp.CfarOutput(*got[s]), plain(c, rt))
+        total += int(want.peaks.sum())
+    assert pipe.flush_detections() == total
+
+
+def test_the_chain_server_on_kernel_a_answers_direct_words(dev):
+    """Each served frame's words equal a direct call's bit for bit and the
+    plain chain's within the wire bar."""
+    from rsp_chains_tpu_torch import packing
+    from rsp_chains_tpu_torch.io import native
+    from rsp_chains_tpu_torch.io.server import ChainServer, request_frames
+
+    chain = rsp.fft_mag_cfar_chain(_cfg(1024))
+    rt = rsp.RuntimeConfig.make(fft_size=1024, div_sum=5)
+    frames = [f * 300 for f in _stream_cpis(1, shape=(16, 1024))[0]]
+    _build.LAUNCHES.clear()
+    with ChainServer(chain, rt, frame_len=1024, log2_fft_size=10) as srv:
+        replies = request_frames("127.0.0.1", srv.port, frames, timeout=60)
+    assert _build.LAUNCHES["chain_ca"] == len(frames)
+    assert [r.seq for r in replies] == list(range(len(frames)))
+    plain = rsp.fft_mag_cfar_chain(_plain(_cfg(1024)))
+    for r, f in zip(replies, frames):
+        iq = native.unpack_iq_c64(native.pack_iq_c64(f))[None]
+        d = chain(iq, rt)
+        want = packing.pack_cfar_words(d.threshold[0], d.peaks[0], 10)
+        np.testing.assert_array_equal(r.words, want.cpu().numpy().view(
+            np.uint32))
+        p = plain(iq, rt)
+        _assert_wire_bar(torch.from_numpy(r.words.view(np.int32)).to(
+            want.device), packing.pack_cfar_words(p.threshold[0],
+                                                  p.peaks[0], 10), 10)
+
+
+def test_a_mid_stream_poke_lands_whole_at_one_cpi_boundary(dev):
+    from rsp_chains_tpu_torch.io import StreamingPipeline
+    from rsp_chains_tpu_torch.io.control import ControlServer, poke
+
+    chain = rsp.fft_mag_cfar_chain(_cfg(1024))
+    rt = rsp.RuntimeConfig.make(fft_size=1024, div_sum=5)
+    go = rt.merge_regs(cfar_mode=1)
+    cpis = _stream_cpis(16, shape=(2, 64, 1024))
+    got = {}
+    pipe = StreamingPipeline(chain, rt, on_result=lambda s, o, m: got.__setitem__(
+        s, o.threshold.clone()))
+    with pipe, ControlServer(lambda: pipe.runtime, pipe.reconfigure,
+                             cfar_cfg=chain.cfg.cfar,
+                             update_rt=pipe.update_runtime) as srv:
+        for s in range(8):
+            pipe.submit(s, cpis[s])
+        poke("127.0.0.1", srv.port, {"cfar_mode": 1})
+        for s in range(8, 16):
+            pipe.submit(s, cpis[s])
+        _wait_for(lambda: len(got) == 16, "every CPI")
+    plain = rsp.fft_mag_cfar_chain(_plain(_cfg(1024)))
+    side = []
+    for s, c in enumerate(cpis):
+        old, new = chain(c, rt), chain(c, go)
+        _assert_close(old, plain(c, rt))
+        _assert_close(new, plain(c, go))
+        assert (torch.equal(got[s], old.threshold)
+                != torch.equal(got[s], new.threshold)), s
+        side.append(torch.equal(got[s], new.threshold))
+    switch = side.index(True)
+    assert side == [False] * switch + [True] * (16 - switch) and switch <= 8
+    assert _build.BUILDS == 1
