@@ -69,7 +69,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    Kernels K and L (``mag_extend``) are held against their plain versions
    on the 1 x 4 mesh's blocks (K exact, L within 1e-6 relative). With two
    cards or more the sharded paths run once more on a mesh of distinct
-   cards; with one, a line says so;
+   cards; with one, a line says so; then the pod pipeline (``pod_paths``,
+   ``parallel/multihost.py``, ``bench.py:797-818``): two processes of this
+   script (``--pod-rank``) joined by ``torch.distributed`` on gloo, each a
+   time block of every CPI batch, placing only its own block: layout 1
+   (cpi=2, ch=1, rng=1) on batches of 2 x 64 x 256 x 1024, Kernel A in each
+   process, 8 CPIs with a register write and a checkpoint after CPI 3 and
+   a restored pipeline, then 16 timed beside one process's
+   ``StreamingPipeline`` on the same batches; layout 2 (cpi=2, ch=2, rng=2)
+   on 2 x 8 x 256 x 1024, four virtual shards of the card a process,
+   cuFFT + L + B under CA and cuFFT + L + C under GOS registers. Each
+   process holds its shards against the plain chain and one frame against
+   ``golden.cfar_golden``; both must report the same global count a CPI,
+   the plain chain's peaks over both blocks, and ``BUILDS`` 1. With two
+   cards or more layout 1 runs again with one process a card, and one
+   process runs time blocks that each spread over two cards;
 5. times each kernel and its plain version, and the chains, with CUDA events
    (the source paths and the NCO alone too, the NCO against its bytes);
    times Kernel B at its points (the headline, the fft_size 512 spectrum, a
@@ -828,6 +842,18 @@ def headline_ca_config():
                             include_cash=False, max_fft_size=SHAPE[-1]))
 
 
+def rdma(c):
+    """``c`` with the kernel halo (``CfarConfig(use_rdma_halo=True)``)."""
+    return dataclasses.replace(c, cfar=dataclasses.replace(
+        c.cfar, use_rdma_halo=True))
+
+
+def plain_of(c):
+    """``c`` with the plain CFAR ops (``use_pallas=False``)."""
+    return dataclasses.replace(c, cfar=dataclasses.replace(
+        c.cfar, use_pallas=False))
+
+
 # the signal sources: rsp_chain_vanilla's frames are tones of the start
 # word SRC_START plus each frame's offset (frame mod 8), so frame f peaks at
 # bin (SRC_START + f mod 8) * N / (4 * table_size) = 32 + 2 (f mod 8); the
@@ -1099,8 +1125,9 @@ def client_reply(sock, dec, pending):
 def serve_clients(port: str, reqs_path: str, out_path: str) -> int:
     """``--serve-clients PORT REQS OUT``: the ChainServer's two clients, run
     by ``serving_paths`` in a process of their own. Connection c sends the
-    requests ``REQS[c]`` on channel c + 1, each waiting for its reply; then
-    connection 0 writes ``threshold_scaler`` and sends one request, writes
+    requests ``REQS[c]`` on channel c + 1, each waiting for its reply; then,
+    once connection 1 has its last reply, connection 0 writes
+    ``threshold_scaler`` and sends one request, writes
     ``mem_run_last=0`` and sends one more. Saves each connection's reply
     words and (seq, channel, last), the latencies and the wall time."""
     import socket
@@ -1119,6 +1146,9 @@ def serve_clients(port: str, reqs_path: str, out_path: str) -> int:
                                     config=True)
 
     replies, lat, errors = {}, [], []
+    # a register write applies to every later CPI, whichever connection
+    # sent it: connection 0 writes only after connection 1's last reply
+    others_done = threading.Event()
 
     def client(c):
         try:
@@ -1132,7 +1162,11 @@ def serve_clients(port: str, reqs_path: str, out_path: str) -> int:
                                                          channel=c + 1))
                     mine.append(client_reply(sock, dec, pending))
                     lat.append(time.perf_counter() - t)
-                if c == 0:
+                if c == 1:
+                    others_done.set()
+                else:
+                    if not others_done.wait(timeout=240):
+                        raise TimeoutError("connection 1 never finished")
                     for seq, kw, iq in ((1000, {"threshold_scaler": 5.0},
                                          reqs[0][0]),
                                         (1001, {"mem_run_last": 0},
@@ -1144,6 +1178,9 @@ def serve_clients(port: str, reqs_path: str, out_path: str) -> int:
                 replies[c] = mine
         except Exception as e:  # noqa: BLE001 — reported below
             errors.append(e)
+        finally:
+            if c == 1:
+                others_done.set()
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=client, args=(c,)) for c in range(2)]
@@ -1625,9 +1662,445 @@ def serving_paths(dev, card: str, cfg) -> list:
     return paths
 
 
+# the pod phase (parallel/multihost.py): two processes of this script, each
+# a time block of every CPI batch [T, C, P, N] (bench.py:797-818, BASELINE
+# config 5). Layout 1 is (cpi=2, ch=1, rng=1) at the headline width, each
+# process's block one headline CPI on Kernel A: POD_CPIS streamed with a
+# register write and a checkpoint after POD_WRITE_AFTER, then POD_TIMED
+# timed; layout 2 is (cpi=2, ch=2, rng=2), four virtual shards of the card a
+# process, on the kernel halo tail (L + B, and L + C under GOS registers)
+POD_SHAPE = (2,) + SHAPE
+POD_SHAPE2 = (2, 8) + SHAPE[1:]
+POD_BATCHES = 4        # distinct seeded batches; CPI k streams batch k % 4
+POD_CPIS, POD_WRITE_AFTER, POD_TIMED = 8, 4, 16
+POD_SCALERS = (3.5, 5.0)   # threshold_scaler before and after the write
+POD_GROUP_S = 300      # the process group's timeout on a collective
+POD_CHILD_S = 600      # each child process's time limit
+
+
+def pod_batches(shape, count: int, seed: int) -> list:
+    """``count`` complex64 CPI batches of ``shape`` from ``seed``: the same
+    on every process (replicated ingest)."""
+    import numpy as np
+
+    gen = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        c = np.empty(shape, np.complex64)
+        c.real = gen.standard_normal(shape, np.float32)
+        c.imag = gen.standard_normal(shape, np.float32)
+        out.append(c)
+    return out
+
+
+def pod_device(rank: int, spread: bool):
+    import torch
+
+    return torch.device("cuda", rank if spread else 0)
+
+
+def pod_child(rank: str, init: str, outdir: str, *mode: str) -> int:
+    """``--pod-rank RANK INIT OUTDIR [spread]``: one of the pod phase's two
+    processes, meeting the other at the ``file://`` store INIT. Both hold
+    ``cuda:0``, or with ``spread`` card RANK each (layout 1 only). It loads
+    the library the parent built (``BUILDS`` must stay 1), drives the pod
+    pipeline with the counters set to 0 just before each layout and read
+    just after, holds each of its shards against the plain chain on the card
+    at the bench bar and one frame against ``golden.cfar_golden``, times
+    layout 1, and writes its report to OUTDIR."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import rsp_chains_tpu_torch as rsp
+    from rsp_chains_tpu_torch.golden import models as golden_models
+    from rsp_chains_tpu_torch.io.cpi import load_state
+    from rsp_chains_tpu_torch.kernels import _build
+    from rsp_chains_tpu_torch.parallel import multihost as MH
+
+    rank, spread = int(rank), mode == ("spread",)
+    dev = pod_device(rank, spread)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the two processes share the host: each takes half its cores, as the
+    # processes of a deployment that share a host would
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // 2))
+    if not _build.library_path().exists():
+        raise AssertionError("the kernel library the parent built is missing")
+    _build.library()
+    MH.initialize_cluster(num_processes=2, process_id=rank, init_method=init,
+                          timeout_s=POD_GROUP_S)
+    launched = _build.LAUNCHES
+    tag = f"pod{' [2 cards]' if spread else ''} rank {rank}"
+    report = {"rank": rank}
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def drained(pipe, n, what):
+        # the drain counts a CPI (and reduces it) after it bumps frames_out
+        wait_for(lambda: pipe.stats.frames_out + pipe.stats.frames_failed
+                 >= n and pipe._det_n >= n, f"{tag}: {what}")
+        st = pipe.stats
+        if (st.frames_out, st.frames_failed) != (n, 0):
+            raise AssertionError(f"{tag}: {what}: {st.frames_out} out, "
+                                 f"{st.frames_failed} failed of {n}")
+
+    def keeper(outs, dets):
+        def keep(seq, out, m):
+            outs[seq] = out
+            dets[seq] = m.detections
+        return keep
+
+    def block_of(mesh):
+        ((t, _),) = mesh.local_blocks()
+        return t
+
+    # ---- layout 1: (cpi=2, ch=1, rng=1) at the headline width, Kernel A ----
+    cfg = headline_ca_config()
+    chain = rsp.fft_mag_cfar_chain(cfg, device=dev)
+    plain = rsp.fft_mag_cfar_chain(plain_of(cfg), device=dev)
+    mesh = MH.make_pod_mesh(time_blocks=2, channels=1, range_shards=1,
+                            devices=MH.global_devices([str(dev)]))
+    t = block_of(mesh)
+    batches = pod_batches(POD_SHAPE, POD_BATCHES, SEED + 20)
+    rt = rsp.RuntimeConfig.make(**HEADLINE)
+    regs = [rt, rt.merge_regs(threshold_scaler=POD_SCALERS[1])]
+
+    def key(seq):
+        return seq % POD_BATCHES, int(seq >= POD_WRITE_AFTER)
+
+    want = {}
+    for seq in range(POD_CPIS):
+        b, r = key(seq)
+        if (b, r) not in want:
+            want[b, r] = plain(rsp.as_pair(batches[b][t:t + 1], device=dev),
+                               regs[r])
+    outs, dets = {}, {}
+    ck = os.path.join(outdir, f"pod-ckpt{rank}{'-spread' if spread else ''}")
+    sync()
+    launched.clear()
+    with MH.PodStreamingPipeline(chain, rt, mesh,
+                                 on_result=keeper(outs, dets)) as pipe:
+        for seq in range(POD_WRITE_AFTER):
+            pipe.submit(seq, batches[key(seq)[0]])
+        drained(pipe, POD_WRITE_AFTER, "the CPIs before the write")
+        pipe.reconfigure(pipe.runtime.merge_regs(
+            threshold_scaler=POD_SCALERS[1]))
+        pipe.checkpoint(ck, next_seq=np.int64(POD_WRITE_AFTER))
+    rt_back, extras = load_state(ck)
+    start = int(extras["next_seq"])
+    if start != POD_WRITE_AFTER or float(rt_back.threshold_scaler) != \
+            POD_SCALERS[1]:
+        raise AssertionError(f"{tag}: the checkpoint gave {start}, "
+                             f"{rt_back.threshold_scaler}")
+    with MH.PodStreamingPipeline(chain, rt_back, mesh,
+                                 on_result=keeper(outs, dets)) as pipe2:
+        for seq in range(start, POD_CPIS):
+            pipe2.submit(seq, batches[key(seq)[0]])
+        drained(pipe2, POD_CPIS - start, "the restored pipeline's CPIs")
+    sync()
+    report["launches1"] = {k: v for k, v in launched.items() if v}
+    print(f"{tag} layout 1 launches: {report['launches1']}")
+    if report["launches1"] != {"chain_ca": POD_CPIS}:
+        raise AssertionError(f"{tag}: layout 1 took {report['launches1']}, "
+                             f"not {POD_CPIS} chain_ca")
+    for seq in range(POD_CPIS):
+        (s,) = outs[seq]
+        if (s.index[0].start, s.index[0].stop) != (t, t + 1):
+            raise AssertionError(f"{tag}: CPI {seq} came back as rows "
+                                 f"{s.index[0]}, not block {t}")
+        compare(s.data, want[key(seq)], f"{tag} layout 1, CPI {seq} "
+                f"(scaler {POD_SCALERS[key(seq)[1]]}), block {t}: Kernel A "
+                f"vs the plain chain")
+    report["dets1"] = [dets[seq] for seq in range(POD_CPIS)]
+    report["plain1"] = [int(want[key(seq)].peaks.sum()) for seq in
+                        range(POD_CPIS)]
+    # one frame of the block against the numpy golden
+    frame = batches[0][t, 0, 0].astype(np.complex128)
+    g_thr, g_pk = golden_models.cfar_golden(
+        golden_models.MAG_GOLDENS[rt.mag_mode](golden_models.fft_golden(
+            frame)), ref_window=rt.ref_window_size,
+        guard_window=rt.guard_window_size,
+        threshold_scaler=rt.threshold_scaler, mode=rt.cfar_mode,
+        div_sum=rt.div_sum, log_or_linear=rt.log_or_linear,
+        peak_grouping=rt.peak_grouping)
+    got = outs[0][0].data
+    k_thr = got.threshold[0, 0, 0].double().cpu().numpy()
+    k_pk = got.peaks[0, 0, 0].cpu().numpy()
+    rel = float(np.abs(k_thr - g_thr).max() / np.abs(g_thr).max())
+    flips = int((k_pk != g_pk).sum())
+    print(f"{tag} layout 1, CPI 0, block {t}, frame (0, 0) against "
+          f"golden.cfar_golden: rel dthr {rel:.3e}, peak flips {flips} of "
+          f"{g_pk.size} cells, {int(g_pk.sum())} peaks")
+    if not (rel < REL_BAR and flips <= FLIP_BAR * g_pk.size):
+        raise AssertionError(f"{tag}: outside the bar against the golden")
+    del outs, want
+
+    # the timed stream: POD_TIMED batches, both processes starting together
+    with MH.PodStreamingPipeline(chain, rt, mesh) as pipe:
+        pipe.submit(-1, batches[0])
+        drained(pipe, 1, "the warm-up CPI")
+        torch.distributed.barrier()
+        ph0 = pipe.stats.phase_totals()
+        t0 = time.perf_counter()
+        for k in range(POD_TIMED):
+            pipe.submit(k, batches[k % POD_BATCHES])
+        drained(pipe, POD_TIMED + 1, "the timed CPIs")
+        sync()
+        report["timed_s"] = time.perf_counter() - t0
+        report["phases"] = phase_table(ph0, pipe.stats.phase_totals(),
+                                       POD_TIMED)
+
+    # ---- layout 2: (cpi=2, ch=2, rng=2), the kernel halo tail ----
+    if not spread:
+        mesh2 = MH.make_pod_mesh(time_blocks=2, channels=2, range_shards=2,
+                                 devices=MH.global_devices([str(dev)] * 4))
+        t = block_of(mesh2)
+        batches2 = pod_batches(POD_SHAPE2, 2, SEED + 21)
+        for name, c, r, kernel in (
+                ("CA", rdma(cfg), rt, "mag_cfar"),
+                ("GOSCA + CASH, GOS registers", rdma(rsp.ChainConfig()),
+                 rsp.RuntimeConfig.make(**GOS_REGS), "mag_gos_cfar")):
+            chain2 = rsp.fft_mag_cfar_chain(c, device=dev)
+            plain2 = rsp.fft_mag_cfar_chain(plain_of(c), device=dev)
+            wants = [plain2(rsp.as_pair(b[t:t + 1], device=dev), r)
+                     for b in batches2]
+            outs, dets = {}, {}
+            sync()
+            launched.clear()
+            with MH.PodStreamingPipeline(chain2, r, mesh2,
+                                         on_result=keeper(outs, dets)) as p:
+                for seq, b in enumerate(batches2):
+                    p.submit(seq, b)
+                drained(p, len(batches2), f"layout 2 {name}")
+            sync()
+            got = {k: v for k, v in launched.items() if v}
+            report[f"launches2 {name}"] = got
+            print(f"{tag} layout 2 {name} launches: {got}")
+            want_l = {"mag_extend": 4 * len(batches2),
+                      kernel: 4 * len(batches2)}
+            if got != want_l:
+                raise AssertionError(f"{tag}: layout 2 {name} took {got}, "
+                                     f"not {want_l}")
+            for seq, w in enumerate(wants):
+                compare(outs[seq][0].data, w, f"{tag} layout 2 (cpi=2, "
+                        f"ch=2, rng=2) {name}, CPI {seq}, block {t}: "
+                        f"cuFFT + mag_extend + {kernel} vs the plain chain")
+            report[f"dets2 {name}"] = [dets[s] for s in range(len(wants))]
+            report[f"plain2 {name}"] = [int(w.peaks.sum()) for w in wants]
+    report["builds"] = _build.BUILDS
+    if _build.BUILDS != 1:
+        raise AssertionError(f"{tag}: the library was produced "
+                             f"{_build.BUILDS} times, not once")
+    with open(os.path.join(outdir, f"pod{rank}{'-spread' if spread else ''}"
+                                   ".json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def pod_spread_block(chain, batches, card: str) -> dict:
+    """One process whose time blocks each spread over two cards: the
+    ``(cpi, ch=2, rng=1)`` pod mesh over the first 2 or 4 cards, each block
+    a sharded step (Kernel A on each card, gathered on the block's first
+    card), the last block's on a card other than the pipeline's. Each shard
+    is held against the plain chain; returns the launches."""
+    import torch
+
+    import rsp_chains_tpu_torch as rsp
+    from rsp_chains_tpu_torch.kernels import _build
+    from rsp_chains_tpu_torch.parallel import multihost as MH
+
+    blocks = min(torch.cuda.device_count() // 2, POD_SHAPE[0])
+    cards = [pod_device(i, True) for i in range(2 * blocks)]
+    mesh = MH.make_pod_mesh(time_blocks=blocks, channels=2,
+                            devices=MH.global_devices(cards))
+    plain = rsp.fft_mag_cfar_chain(plain_of(chain.cfg), device=cards[0])
+    rt = rsp.RuntimeConfig.make(**HEADLINE)
+    outs = {}
+    launched = _build.LAUNCHES
+    launched.clear()
+    with MH.PodStreamingPipeline(chain, rt, mesh, on_result=lambda s, o, m:
+                                 outs.__setitem__(s, o)) as pipe:
+        for seq in range(POD_BATCHES):
+            pipe.submit(seq, batches[seq])
+        wait_for(lambda: pipe.stats.frames_out + pipe.stats.frames_failed
+                 >= POD_BATCHES, "the spread blocks' CPIs")
+    for c in cards:
+        torch.cuda.synchronize(c)
+    got = {k: v for k, v in launched.items() if v}
+    print(f"pod, one process, {blocks} time block(s) of 2 cards "
+          f"({', '.join(map(str, cards))}) launches: {got}; card {card}")
+    if pipe.stats.frames_failed or got != {
+            "chain_ca": POD_BATCHES * POD_SHAPE[0] * 2}:
+        raise AssertionError(f"pod spread blocks: {got}, "
+                             f"{pipe.stats.frames_failed} failed")
+    for seq in range(POD_BATCHES):
+        for s in outs[seq]:
+            rows = s.index[0]
+            want = plain(rsp.as_pair(batches[seq][rows], device=cards[0]),
+                         rt)
+            here = type(s.data)(*(None if v is None else v.to(cards[0])
+                                  for v in s.data))
+            compare(here, want, f"pod, time block rows {rows.start}:"
+                    f"{rows.stop} gathered on {s.data.threshold.device} "
+                    f"from two cards, CPI {seq}: Kernel A vs the plain chain")
+    return got
+
+
+def pod_paths(dev, card: str, cfg) -> list:
+    """The pod phase: two processes of this script (``--pod-rank``), each a
+    time block of every CPI batch, layouts 1 and 2 on this card, and layout
+    1 again with one process a card where there are two cards or more. A
+    child that fails fails the phase. Checks that both processes report the
+    same global count for every CPI, equal to the plain chain's peaks summed
+    over both blocks; prints the pod's ms per CPI batch and Msamples/s (host
+    clock ending in a synchronize, the slower process) beside one process's
+    ``StreamingPipeline`` on the same batches, two of whose outputs are held
+    against the plain chain. Returns the launches of each layout, summed
+    over the processes."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import rsp_chains_tpu_torch as rsp
+    from rsp_chains_tpu_torch.io import StreamingPipeline
+    from rsp_chains_tpu_torch.kernels import _build
+
+    paths = []
+    samples = int(np.prod(POD_SHAPE))
+    runs = [("", [])]
+    if torch.cuda.device_count() >= 2:
+        runs.append((" [2 cards]", ["spread"]))
+    torch.cuda.empty_cache()   # the children allocate on the same card
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, extra in runs:
+            t_wall = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, __file__, "--pod-rank", str(r),
+                 f"file://{tmp}/store{len(extra)}", tmp, *extra],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for r in (0, 1)]
+            done = []
+            try:
+                for p in procs:
+                    out, err = p.communicate(timeout=POD_CHILD_S)
+                    done.append((p.returncode, out, err))
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
+            t_wall = time.perf_counter() - t_wall
+            for r, (rc, out, err) in enumerate(done):
+                print(out, end="")
+                if rc != 0:
+                    raise AssertionError(f"pod{tag} rank {r} exited {rc}:\n"
+                                         f"{err[-4000:]}")
+            reps = []
+            for r in (0, 1):
+                with open(f"{tmp}/pod{r}{'-spread' if extra else ''}"
+                          ".json") as f:
+                    reps.append(json.load(f))
+            for k in [k for k in reps[0] if k.startswith("dets")]:
+                plain_k = k.replace("dets", "plain")
+                want = [a + b for a, b in zip(reps[0][plain_k],
+                                              reps[1][plain_k])]
+                print(f"pod{tag} layout {k[4:]}: global detections a CPI, "
+                      f"rank 0 {reps[0][k]}, rank 1 {reps[1][k]}; the plain "
+                      f"chain's peaks summed over both blocks {want}")
+                if not reps[0][k] == reps[1][k] == want:
+                    raise AssertionError(f"pod{tag}: the global counts "
+                                         f"{k} differ")
+            for rep in reps:
+                if rep["builds"] != 1:
+                    raise AssertionError(f"pod{tag} rank {rep['rank']} "
+                                         f"built {rep['builds']} times")
+            for k in [k for k in reps[0] if k.startswith("launches")]:
+                paths.append({n: reps[0][k].get(n, 0) + reps[1][k].get(n, 0)
+                              for n in set(reps[0][k]) | set(reps[1][k])})
+            slow = max(rep["timed_s"] for rep in reps)
+            where = ("one process a card" if extra else "both processes on "
+                     "one card, whose two CUDA contexts share it by time "
+                     "slicing")
+            print(f"pod{tag} layout 1 (cpi=2, ch=1, rng=1), CPI batches "
+                  f"{'x'.join(map(str, POD_SHAPE))} complex64, {where}: "
+                  f"{POD_TIMED} batches host-fed through PodStreamingPipeline "
+                  f"on Kernel A, {slow / POD_TIMED * 1e3:.4f} ms per CPI "
+                  f"batch = {POD_TIMED * samples / slow / 1e6:.1f} "
+                  f"Msamples/s for the pod (host clock ending in a "
+                  f"synchronize, the slower process; the global count "
+                  f"reduced every CPI); phase ms per CPI: rank 0 "
+                  f"{reps[0]['phases']}; rank 1 {reps[1]['phases']}; the "
+                  f"phase's wall time {t_wall:.1f} s with the processes' "
+                  f"start; card {card}")
+    chain = rsp.fft_mag_cfar_chain(cfg, device=dev)
+    batches = pod_batches(POD_SHAPE, POD_BATCHES, SEED + 20)
+    if len(runs) == 1:
+        print("pod phase on several cards: did not run: this host has one "
+              "CUDA card; layout 1 runs with one process a card, and a "
+              "time block spread over two cards, when "
+              "torch.cuda.device_count() >= 2")
+    else:
+        paths.append(pod_spread_block(chain, batches, card))
+    # the same batches through one process's StreamingPipeline: Kernel A on
+    # 2 x 64 x 256 frames a launch; the warm-up's and the last batch's
+    # outputs are held against the plain chain
+    rt = rsp.RuntimeConfig.make(**HEADLINE)
+    batch_of = {-1: 0, POD_TIMED - 1: (POD_TIMED - 1) % POD_BATCHES}
+    keep = {}
+
+    def keep_checked(seq, out, m):
+        if seq in batch_of:
+            keep[seq] = out
+
+    launched = _build.LAUNCHES
+    torch.cuda.synchronize(dev)
+    launched.clear()
+    with StreamingPipeline(chain, rt, on_result=keep_checked) as pipe:
+        pipe.submit(-1, batches[0])
+        wait_for(lambda: pipe.stats.frames_out >= 1, "the warm-up batch")
+        ph0 = pipe.stats.phase_totals()
+        t0 = time.perf_counter()
+        for k in range(POD_TIMED):
+            pipe.submit(k, batches[k % POD_BATCHES])
+        wait_for(lambda: pipe.stats.frames_out >= POD_TIMED + 1,
+                 "the timed batches")
+        torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        ph1 = pipe.stats.phase_totals()
+    if pipe.stats.frames_failed:
+        raise AssertionError("the one-process stream failed a CPI")
+    print(f"pod comparison: the same {POD_TIMED} CPI batches "
+          f"{'x'.join(map(str, POD_SHAPE))} through one process's "
+          f"StreamingPipeline on Kernel A: {dt / POD_TIMED * 1e3:.4f} ms per "
+          f"CPI batch = {POD_TIMED * samples / dt / 1e6:.1f} Msamples/s "
+          f"(host clock ending in a synchronize); phase ms per CPI: "
+          f"{phase_table(ph0, ph1, POD_TIMED)}; card {card}")
+    torch.cuda.synchronize(dev)
+    got = {k: v for k, v in launched.items() if v}
+    print(f"pod comparison launches: {got}")
+    if got != {"chain_ca": POD_TIMED + 1}:
+        raise AssertionError(f"the one-process stream took {got}, not "
+                             f"{POD_TIMED + 1} chain_ca")
+    paths.append(got)
+    plain = rsp.fft_mag_cfar_chain(plain_of(cfg), device=dev)
+    for seq, b in batch_of.items():
+        compare(keep[seq], plain(rsp.as_pair(batches[b], device=dev), rt),
+                f"pod comparison, one process, CPI {seq}: Kernel A on "
+                f"{'x'.join(map(str, POD_SHAPE))} vs the plain chain")
+    return paths
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--serve-clients"]:
         return serve_clients(*sys.argv[2:])
+    if sys.argv[1:2] == ["--pod-rank"]:
+        return pod_child(*sys.argv[2:])
     import numpy as np
     import torch
 
@@ -1671,8 +2144,7 @@ def main() -> int:
     print(_build.build_log().strip())
 
     cfg = headline_ca_config()
-    plain_cfg = dataclasses.replace(
-        cfg, cfar=dataclasses.replace(cfg.cfar, use_pallas=False))
+    plain_cfg = plain_of(cfg)
     rng = np.random.RandomState(SEED)
     x = rsp.as_pair(rng.randn(*SHAPE).astype(np.float32)
                     + 1j * rng.randn(*SHAPE).astype(np.float32), device=dev)
@@ -1701,8 +2173,7 @@ def main() -> int:
                     f"mag_cfar N {n} [{label}] vs mag_cfar_reference")
 
     gcfg = rsp.ChainConfig()  # the default elaboration: GOSCA + CASH
-    gplain_cfg = dataclasses.replace(
-        gcfg, cfar=dataclasses.replace(gcfg.cfar, use_pallas=False))
+    gplain_cfg = plain_of(gcfg)
     grt = rsp.RuntimeConfig.make(**GOS_REGS)
     print(f"plain GOS versions run over {GOS_CHUNK}-channel chunks of the "
           f"{SHAPE[0]} channels (their window stacks)")
@@ -1778,8 +2249,7 @@ def main() -> int:
                                                     cfg2d),
                     "rd_2d vs fused_rd_2d_chain_reference")
     pc_cfg = pc_config(PC_SHAPE[-1])
-    pc_plain_cfg = dataclasses.replace(pc_cfg, cfar=dataclasses.replace(
-        pc_cfg.cfar, use_pallas=False))
+    pc_plain_cfg = plain_of(pc_cfg)
     pgen = torch.Generator(device=dev).manual_seed(SEED + 1)
     x2 = rsp.C(*(torch.randn(PC_SHAPE, device=dev, generator=pgen) * 100
                  for _ in range(2)))
@@ -1826,8 +2296,7 @@ def main() -> int:
     pure_cfg = rsp.ChainConfig(cfar=rsp.CfarConfig(
         variant=rsp.CfarVariant.GOS, include_cash=False))
     pure = rsp.fft_mag_cfar_chain(pure_cfg)
-    pure_plain = rsp.fft_mag_cfar_chain(dataclasses.replace(
-        pure_cfg, cfar=dataclasses.replace(pure_cfg.cfar, use_pallas=False)))
+    pure_plain = rsp.fft_mag_cfar_chain(plain_of(pure_cfg))
     for c in (gchain, pure):
         assert c.stage_names == ("fft_mag_gos_cfar_fused",), c.stage_names
     xs = rsp.C(x.re[:GOS_CHUNK], x.im[:GOS_CHUNK])
@@ -2167,10 +2636,6 @@ def main() -> int:
     from rsp_chains_tpu_torch.kernels import halo as khalo
     from rsp_chains_tpu_torch.parallel.dryrun import dryrun_multichip
 
-    def rdma(c):
-        return dataclasses.replace(c, cfar=dataclasses.replace(
-            c.cfar, use_rdma_halo=True))
-
     scfg, rd_scfg = rdma(cfg), rdma(rd_cfg)
     rd_gscfg = rdma(dataclasses.replace(rd_cfg, cfar=gcfg.cfar))
     s_chain = rsp.fft_mag_cfar_chain(scfg)
@@ -2343,6 +2808,9 @@ def main() -> int:
         print("multi-card sharded phase: did not run: this host has one CUDA "
               "card; it runs when torch.cuda.device_count() >= 2")
 
+    # ---- the pod pipeline: two processes, a time block each ----
+    pod_launches = pod_paths(dev, card, cfg)
+
     if _build.BUILDS != 1:
         raise AssertionError(f"library built {_build.BUILDS} times, not once")
     paths = (ca_launches, gos_launches, int_launches, int_gos_launches,
@@ -2350,7 +2818,7 @@ def main() -> int:
              wire_launches, rd_launches, rd_gos_launches,
              det_launches, pc_launches, rd_wire_launches, rd2_launches,
              rd2_far_launches, *src_launches, *serve_launches,
-             *sharded.values())
+             *sharded.values(), *pod_launches)
     launches = {k: sum(p.get(k, 0) for p in paths)
                 for k in ("chain_ca", "mag_cfar", "mag_gos_cfar", "chain_gos",
                           "wire_ca", "chain_int", "chain_int_gos",

@@ -32,6 +32,10 @@ class C(NamedTuple):
 CLike = Union[C, torch.Tensor, np.ndarray]
 
 
+def is_pair(x: CLike) -> bool:
+    return isinstance(x, C)
+
+
 def as_pair(x: CLike, device=None) -> C:
     """Normalise to ``C``. A complex tensor or array is split into contiguous
     float32 planes; a real one gets a zero imaginary plane. ``device`` moves

@@ -192,6 +192,7 @@ class StreamingPipeline:
         self.detections_total = 0
         self._det_acc = None      # the worker's running device total
         self._det_last = None     # (total, event) of the last drained CPI
+        self._last_ev = None      # the worker's event of its last CPI
         self._det_n = 0
         self.device_error: Optional[BaseException] = None
         self._rt_lock = threading.Lock()
@@ -348,8 +349,8 @@ class StreamingPipeline:
                 t_d = time.perf_counter()
                 out = self._fn(x, rt)      # the launches queue on the stream
                 counts = None
-                if hasattr(out, "peaks"):
-                    part = out.peaks.sum(dtype=torch.int64)
+                part = self._count_of(out)
+                if part is not None:
                     total = part if self._det_acc is None \
                         else self._det_acc + part
                     self._det_acc = total
@@ -358,18 +359,34 @@ class StreamingPipeline:
                 if self._cuda:
                     ev = torch.cuda.Event()
                     ev.record(self._stream)
+                    self._last_ev = ev
                     if self._last_slot is not None:
                         self._slot_free[self._last_slot] = ev
                 t_e = time.perf_counter()
                 self.stats.bump(t_place=t_d - t_p, t_dispatch=t_e - t_d)
             except Exception as e:         # noqa: BLE001 — elastic: skip the CPI
                 self._fail(seq, e)
+                self._outq.put((seq, None, self._last_ev,
+                                self._failed_counts(), t_in, 0))
                 continue
             self._outq.put((seq, out, ev, counts, t_in,
                             int(np.prod(cpi.shape))))
             if t_start is None:
                 t_start = time.perf_counter()
             self.stats.set_time(time.perf_counter() - t_start)
+
+    def _count_of(self, out) -> Optional[torch.Tensor]:
+        """The CPI's detections, an int64 tensor summed on the compute
+        stream, or None for an output without peaks (wire words)."""
+        return out.peaks.sum(dtype=torch.int64) if hasattr(out, "peaks") \
+            else None
+
+    def _failed_counts(self):
+        """The ``(part, total)`` counts that a failed CPI passes to the
+        drain, or None: here it passes none, and the drain only takes it off
+        the queue. ``PodStreamingPipeline`` passes a part of 0, so that its
+        processes reduce their counts at the same CPIs."""
+        return None
 
     def _place(self, cpi):
         """Host CPI -> device operand (``jax.device_put`` in the JAX
@@ -438,22 +455,32 @@ class StreamingPipeline:
                     self._outq.get(timeout=0.05)
             except queue.Empty:
                 continue
-            try:
-                self._drained_n += 1
-                blocked = (self._block_every == 1
-                           or self._drained_n % self._block_every == 0)
-                if blocked:
-                    t_b = time.perf_counter()
-                    if ev is not None:
-                        ev.synchronize()
-                    self.stats.bump(t_block=time.perf_counter() - t_b)
-                    # one compute stream: this completion implies every
-                    # earlier dispatch completed — the owed wait is paid
-                    self._pending_block = None
-                else:
-                    self._pending_block = ev   # completion owed at stop
-            except Exception as e:         # noqa: BLE001 — deferred device error
-                self._fail(seq, e)
+            if out is not None:
+                try:
+                    self._drained_n += 1
+                    blocked = (self._block_every == 1
+                               or self._drained_n % self._block_every == 0)
+                    if blocked:
+                        t_b = time.perf_counter()
+                        if ev is not None:
+                            ev.synchronize()
+                        self.stats.bump(t_block=time.perf_counter() - t_b)
+                        # one compute stream: this completion implies every
+                        # earlier dispatch completed — the owed wait is paid
+                        self._pending_block = None
+                    else:
+                        self._pending_block = ev   # completion owed at stop
+                except Exception as e:  # noqa: BLE001 — deferred device error
+                    self._fail(seq, e)
+                    out, counts = None, self._failed_counts()
+            if out is None:
+                # a failed CPI, already counted: only its counts, if it
+                # passes any, go on
+                if counts is not None:
+                    try:
+                        self._count(counts, ev)
+                    except Exception as e:  # noqa: BLE001 — as _deliver's
+                        self._fail(seq, e, count=False)
                 continue
             lat = time.perf_counter() - t_in
             self.stats.bump(frames_out=1, total_samples=n_samples)
@@ -480,28 +507,7 @@ class StreamingPipeline:
         callback-less serving deployment still gets ``detections_total`` /
         ``flush_detections()``."""
         t_r = time.perf_counter()
-        if counts is not None:
-            # the worker summed the count on the device; it crosses to the
-            # host (one scalar, after the CPI's event) only every
-            # ``detections_every``-th CPI; in between
-            # ``CpiMetrics.detections = -1`` ("not fetched yet")
-            part, total = counts
-            self._det_last = (total, ev)
-            self._det_n += 1
-            k = self._detections_every
-            if k == 1:
-                # the per-CPI exact count only feeds CpiMetrics — skip its
-                # fetch when nobody consumes metrics
-                det = (self._fetch(part, ev) if self._on_result is not None
-                       else -1)
-                self.detections_total = self._fetch(total, ev)
-            elif k > 1 and self._det_n % k == 0:
-                det = -1
-                self.detections_total = self._fetch(total, ev)
-            else:
-                det = -1   # deferred: no fetch this CPI
-        else:
-            det = 0
+        det = self._count(counts, ev) if counts is not None else 0
         if self._on_result is None:
             return
         metrics = CpiMetrics(seq=seq, samples=n_samples, detections=det,
@@ -514,11 +520,33 @@ class StreamingPipeline:
             self._on_result(seq, out, metrics)
         self.stats.bump(t_result=time.perf_counter() - t_r)
 
-    @staticmethod
-    def _fetch(total: torch.Tensor, ev) -> int:
+    def _count(self, counts, ev) -> int:
+        """Account one CPI's ``(part, total)`` counts; returns its
+        ``CpiMetrics.detections``. The worker summed them on the device;
+        they cross to the host (one scalar, after the CPI's event) only every
+        ``detections_every``-th CPI; in between ``CpiMetrics.detections =
+        -1`` ("not fetched yet")."""
+        part, total = counts
+        self._det_last = (total, ev)
+        self._det_n += 1
+        k = self._detections_every
+        if k == 1:
+            # the per-CPI exact count only feeds CpiMetrics — skip its
+            # fetch when nobody consumes metrics
+            det = self._fetch(part, ev) if self._on_result is not None else -1
+            self.detections_total = self._fetch(total, ev)
+            return det
+        if k > 1 and self._det_n % k == 0:
+            self.detections_total = self._fetch(total, ev)
+        return -1   # deferred: no fetch this CPI
+
+    def _fetch(self, count, ev) -> int:
+        """A count on the host: a tensor after ``ev``, an int as it is."""
+        if not isinstance(count, torch.Tensor):
+            return int(count)
         if ev is not None:
             ev.synchronize()
-        return int(total.item())
+        return int(count.item())
 
     def flush_detections(self) -> int:
         """Force-fetch the accumulated device detection count of the CPIs

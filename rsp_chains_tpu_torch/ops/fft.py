@@ -87,6 +87,18 @@ def fft_op(x: CLike, log2_fft_size: Optional[int] = None,
     return like(x, C(y.real.contiguous(), y.imag.contiguous()))
 
 
+def ifft_op(x: CLike, n: Optional[int] = None) -> CLike:
+    """Inverse FFT of the last axis, scaled by 1/n: a ``C`` in gives a ``C``
+    out, a complex tensor or array a complex tensor; ``n`` is the axis
+    length by default. The JAX package computes it with its XLA four-step
+    matmuls, outside any Pallas kernel, so ``torch.fft.ifft`` is its
+    port."""
+    xp = as_pair(x)
+    y = torch.fft.ifft(torch.complex(xp.re.float(), xp.im.float()), n=n,
+                       dim=-1)
+    return like(x, C(y.real.contiguous(), y.imag.contiguous()))
+
+
 def rfft_op(x, pair: bool = False):
     """Real frames ``[..., n]`` (n a power of two; a tensor, or numpy on the
     CPU) -> the n // 2 + 1 bins of their FFT, unscaled, as a ``C`` when

@@ -247,7 +247,10 @@ def test_package_imports_no_jax():
             "import rsp_chains_tpu_torch.io, rsp_chains_tpu_torch.io.cpi, "
             "rsp_chains_tpu_torch.io.server, rsp_chains_tpu_torch.cli, "
             "rsp_chains_tpu_torch.ops.detect, "
-            "rsp_chains_tpu_torch.utils.profiling; "
+            "rsp_chains_tpu_torch.utils.profiling, "
+            "rsp_chains_tpu_torch.parallel.multihost, "
+            "rsp_chains_tpu_torch.golden.models, "
+            "rsp_chains_tpu_torch.golden.int_models; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'rsp_chains_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
