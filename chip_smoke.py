@@ -34,6 +34,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the frame-per-block kernels' bound, N = 16384, and beyond it on the split
    route of Kernels F and G (``csrc/int_split.cu``): the headline's samples
    as 512 x 32768, 256 x 65536 and 1 x 2^18 frames and one frame of 2^20,
+   F at 512 x 32768 and G at 1 x 2^18 with expanding and keepLSB stages,
    then both integer register sweeps at N = 32768, and
    ``rx_fft_mag_cfar_tx_chain`` for the float CA and the bit-true
    elaborations; it checks the three-tone detections of the float and
@@ -89,11 +90,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    times Kernel B at its points (the headline, the fft_size 512 spectrum, a
    GOSCA elaboration's CA registers, the range-Doppler map, the given
    magnitude of the 1 x 4 mesh) and frame sizes, Kernel I at its frame
-   sizes, Kernel E at its two wire points and Kernels A, F, G and H at the
-   headline (``tail_times``: by CUDA events, on the card alone with the
-   host's launches queued ahead, and the host time a call); times the split
-   route of F and G at each of its sizes, with a profile of its head, body
-   and tail launches at 512 x 32768;
+   sizes, Kernel E at its two wire points, Kernels A, F, G and H at the
+   headline and the split route of F and G at each of its sizes
+   (``tail_times``: by CUDA events, on the card alone with the host's
+   launches queued ahead, and the host time a call); times the split
+   route of F and G at each of its sizes through the chain too, with a
+   profile of its head, body and tail launches at 512 x 32768;
    times Kernel F's row plan beside its frame-per-block kernel on the same
    frames of 1024 (the bench's stage flags, and seven expanding stages);
    times Kernels C, D and G at the windows 8, 32 and 64, each also with the
@@ -118,9 +120,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    its inputs.
 
 ``python3 chip_smoke.py --compare`` only builds the kernels and prints
-``tail_times``: a copy of the script in another checkout of the port (an
-earlier commit), run in the same call, times that checkout's kernels on the
-same card.
+``tail_times`` with the split route's per-launch profile: a copy of the
+script in another checkout of the port (an earlier commit), run in the same
+call, times that checkout's kernels on the same card.
 
 Bars: for the float kernels the bench's (``bench.py:404``), max|dthr| /
 max|thr| < 1e-4 and peak flips <= 1e-5 of the cells; for the wire kernel the
@@ -587,14 +589,27 @@ def pc_frame_sizes(dev, taps, samples: int) -> dict:
                 h_planes(taps, n, True, dev)) for n in PC_SIZES}
 
 
-def tail_times(dev) -> dict:
+def at_size(c, n: int):
+    """The chain config ``c`` at frames of ``n`` (its FFT's and CFAR's
+    sizes)."""
+    import rsp_chains_tpu_torch as rsp
+
+    return dataclasses.replace(c, fft=rsp.FftConfig(max_size=n),
+                               cfar=dataclasses.replace(c.cfar,
+                                                        max_fft_size=n))
+
+
+def tail_times(dev, profiles: bool = False) -> dict:
     """Kernel B at its points and frame sizes and Kernel I at its frame
     sizes, with Kernel A at the headline beside them as a yardstick, Kernel
-    E at the wire points and Kernels F, G and H at the headline; each
-    on seeded inputs of SHAPE's samples: (median ms by CUDA events, on the
-    card alone (``device_ms``), host ms a call). Only entry points that every version of the port
-    since its sharded chains has are called, so ``--compare`` runs it on an
-    earlier checkout too."""
+    E at the wire points, Kernels F, G and H at the headline and the split
+    route of F and G at SPLIT_SHAPES; each on seeded inputs of SHAPE's
+    samples: (median ms by CUDA events, on the card alone (``device_ms``),
+    host ms a call). Only entry points that every version of the port since
+    its sharded chains has are called (the split route's since it came),
+    so ``--compare`` runs it on an earlier checkout too. With ``profiles``
+    it then prints the per-launch profile (head, body, tail) of the split
+    route at the first of SPLIT_SHAPES."""
     import numpy as np
     import torch
 
@@ -678,8 +693,26 @@ def tail_times(dev) -> dict:
             lambda v=v, c=c, h=h, r=rsp.RuntimeConfig.make(
                 **{**PC_REGS, "fft_size": n}):
             kchain.pc_ca(v, r, c.fft, c.cfar, h))
-    return {name: (time_ms(fn), device_ms(fn), host_call_ms(fn))
-            for name, fn in points.items()}
+    flat = rsp.C(xi.re.reshape(-1), xi.im.reshape(-1))
+    split0 = []
+    for f, n in SPLIT_SHAPES:
+        v = rsp.C(flat.re[:f * n].reshape(f, n), flat.im[:f * n].reshape(f, n))
+        for name, fn, c, regs in (
+                ("chain_int_split", kint.chain_int, icfg, HEADLINE),
+                ("chain_int_gos_split", kint.chain_int_gos, igcfg, GOS_REGS)):
+            label = (f"{name} at {f}x{n}, "
+                     f"{'GOS' if c is igcfg else 'headline'} registers")
+            points[label] = (
+                lambda v=v, fn=fn, c=at_size(c, n), r=rsp.RuntimeConfig.make(
+                    **{**regs, "fft_size": n}): fn(v, r, c.fft, c.cfar))
+            if (f, n) == SPLIT_SHAPES[0]:
+                split0.append(label)
+    times = {name: (time_ms(fn), device_ms(fn), host_call_ms(fn))
+             for name, fn in points.items()}
+    if profiles:
+        for label in split0:
+            profile(points[label], label, ())
+    return times
 
 
 def row_blocks(card: str, x, xi, spec, rt, cfg, x2, rt_pc, pc_cfg,
@@ -817,9 +850,9 @@ def print_tail_times(times: dict, card: str) -> None:
 
 def compare_mode(card: str) -> int:
     """``--compare``: build the kernels of the checkout this script lies in
-    and print ``tail_times``, nothing else; run from two checkouts in one
-    call (a copy of this script in each) it compares their kernels on one
-    card."""
+    and print ``tail_times`` and the split route's per-launch profile,
+    nothing else; run from two checkouts in one call (a copy of this script
+    in each) it compares their kernels on one card."""
     import torch
 
     from rsp_chains_tpu_torch.kernels import _build
@@ -828,7 +861,8 @@ def compare_mode(card: str) -> int:
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({_build.library_path().name})")
-    print_tail_times(tail_times(torch.device("cuda", 0)), card)
+    print_tail_times(tail_times(torch.device("cuda", 0), profiles=True),
+                     card)
     return 0
 
 
@@ -2398,11 +2432,6 @@ def main() -> int:
     # ---- the bit-true chains at the integer kernels' frame bound ----
     nb = 1 << kint.MAX_LOG2N
 
-    def at_size(c, n):
-        return dataclasses.replace(c, fft=rsp.FftConfig(max_size=n),
-                                   cfar=dataclasses.replace(c.cfar,
-                                                            max_fft_size=n))
-
     def at_bound(c):
         return at_size(c, nb)
 
@@ -2451,6 +2480,25 @@ def main() -> int:
          "chain_int_split" if tag == "F" else "chain_int_gos_split", top,
          plain_top, split_x[n])
         for (tag, n), (top, plain_top, rt_n) in split_tops.items()]
+    # stages that expand and keep the LSB in the head and in the body,
+    # where the body reads its stage flags at run time
+    flagged = dict(expand_logic=tuple(int(s in (1, 4, 8)) for s in range(30)),
+                   keep_msb_or_lsb=tuple(int(s not in (0, 5, 12))
+                                         for s in range(30)))
+    for tag, n, top_cfg, plain_base, regs in (
+            ("F", SPLIT_SHAPES[0][1], icfg, iplain_cfg, HEADLINE),
+            ("G", 1 << 18, igcfg, igplain_cfg, GOS_REGS)):
+        fft_n = rsp.FftConfig(max_size=n, **{
+            k: v[:n.bit_length() - 1] for k, v in flagged.items()})
+        split_points.append((
+            f"int {'CA' if tag == 'F' else 'GOS'} {split_x[n].shape[0]}x{n}, "
+            f"expanding 1, 4, 8, keepLSB 0, 5, 12",
+            rsp.RuntimeConfig.make(**{**regs, "fft_size": n}),
+            "chain_int_split" if tag == "F" else "chain_int_gos_split",
+            *(rsp.fft_mag_cfar_chain(dataclasses.replace(at_size(c, n),
+                                                         fft=fft_n))
+              for c in (top_cfg, plain_base)),
+            split_x[n]))
     split_launches = sweep(
         "bit-true path beyond N 16384", split_points,
         lambda rt_s, top, plain_top, v: top(v, rt_s),
@@ -2948,9 +2996,15 @@ def main() -> int:
               f"plain path {plain_ms:.4f} ms = "
               f"{samples / plain_ms / 1e3:.1f} Msamples/s; card {card}")
 
+    # ---- Kernel B at its points and frame sizes, Kernel I at its sizes ----
+    # (and the split route of F and G at SPLIT_SHAPES)
+    tails = tail_times(dev)
+    print_tail_times(tails, card)
+
     # ---- Kernels F and G beyond N 16384: the split route ----
-    # each kernel and its chain by CUDA events, its plain version over 5
-    # calls; the profile splits a call into its head, body and tail launches
+    # each kernel by CUDA events (tail_times' at SPLIT_SHAPES, on the same
+    # frames), its chain too, its plain version over 5 calls; the profile
+    # splits a call into its head, body and tail launches
     split_times = {}
     for (tag, n), (top, plain_top, rt_n) in split_tops.items():
         v = split_x[n]
@@ -2959,12 +3013,15 @@ def main() -> int:
             ("chain_int_split", kint.chain_int, kint.chain_int_reference)
             if tag == "F" else ("chain_int_gos_split", kint.chain_int_gos,
                                 kint.chain_int_gos_reference))
-        ms = time_ms(lambda: fn(v, rt_n, c.fft, c.cfar))
+        shape = "x".join(map(str, v.shape))
+        label = (f"{name} at {shape}, "
+                 f"{'headline' if tag == 'F' else 'GOS'} registers")
+        ms = (tails[label][0] if label in tails
+              else time_ms(lambda: fn(v, rt_n, c.fft, c.cfar)))
         chain_ms = time_ms(lambda: top(v, rt_n))
         plain_ms = time_ms(lambda: ref(v, rt_n, c.fft, c.cfar), calls=5,
                            warm=1)
         split_times[name, n] = (ms, plain_ms)
-        shape = "x".join(map(str, v.shape))
         print(f"{name} at {shape}: kernel {ms:.4f} ms = "
               f"{v.re.numel() / ms / 1e3:.1f} Msamples/s, through "
               f"fft_mag_cfar_chain {chain_ms:.4f} ms, plain {plain_ms:.4f} ms; "
@@ -2972,9 +3029,6 @@ def main() -> int:
         if n == SPLIT_SHAPES[0][1]:
             profile(lambda: fn(v, rt_n, c.fft, c.cfar), f"{name} at {shape}",
                     ())
-
-    # ---- Kernel B at its points and frame sizes, Kernel I at its sizes ----
-    print_tail_times(tail_times(dev), card)
 
     # ---- Kernel F's two routes at the headline shape ----
     # the row plan (frames of 256-1024) beside the frame-per-block kernel

@@ -1,6 +1,7 @@
 // Kernel F's front and tail for frames of N = 256, 512 or 1024: the integer
 // FFT of int_front.cuh on the row plan of row_fft.cuh, and an integer
-// run-sum CA tail.
+// run-sum CA tail. The split route of F and G (int_split.cu) runs the same
+// passes on its sub-frames and the same tail on its tiles.
 //
 // * The passes: thread m of a frame's N / 16 holds the 16 cells m + (N / 16) k
 //   and runs the first four radix-2 DIF stages of `rsp_int_fft` on them in
@@ -28,14 +29,16 @@
 #include "int_front.cuh"
 #include "row_fft.cuh"
 
-// One stage's 8 butterflies on a thread's 16 cells (slot k at cell base +
-// stride k), pairing slots k and k + hs, with the stage flags given.
+// One stage's kSlots / 2 butterflies on a thread's kSlots cells (slot k at
+// cell base + stride k), pairing slots k and k + hs, with the stage flags
+// given.
+template <int kSlots>
 static __device__ __forceinline__ void rsp_int_stage(
     int* xr, int* xi, int base, int stride, int hs,
     const int2* __restrict__ tw, bool expanding, bool lsb, bool grown) {
   const int half = hs * stride;  // the pair distance in cells
 #pragma unroll
-  for (int k = 0; k < 16; ++k) {
+  for (int k = 0; k < kSlots; ++k) {
     if (k & hs) continue;
     const int j = (base + stride * k) & (half - 1);
     rsp_int_butterfly(xr[k], xi[k], xr[k + hs], xi[k + hs],
@@ -44,13 +47,14 @@ static __device__ __forceinline__ void rsp_int_stage(
 }
 
 // kStages radix-2 DIF stages of rsp_int_fft, the first stage s0, on a
-// thread's 16 cells: slot k at cell base + stride k, the first stage pairing
-// slots k and k + 2^(kStages - 1). `grown`: whether a stage so far expanded.
+// thread's kSlots cells: slot k at cell base + stride k, the first stage
+// pairing slots k and k + 2^(kStages - 1). `grown`: whether a stage so far
+// expanded.
 // A stage that rounds half up on data that has not grown (every stage at
 // the bench's configuration) takes the flags as constants, which fold away;
 // any other stage takes them at run time, where the unrolled butterflies
 // compute every path and select. The branch is uniform across the block.
-template <int kStages>
+template <int kStages, int kSlots = 16>
 static __device__ __forceinline__ void rsp_int_pass(
     int* xr, int* xi, int base, int stride, int s0,
     const int2* __restrict__ tw, unsigned expand_mask, unsigned lsb_mask,
@@ -63,9 +67,11 @@ static __device__ __forceinline__ void rsp_int_pass(
     const bool lsb = !expanding && ((lsb_mask >> s) & 1u);
     grown = grown || expanding;
     if (!grown && !lsb)
-      rsp_int_stage(xr, xi, base, stride, hs, tw, false, false, false);
+      rsp_int_stage<kSlots>(xr, xi, base, stride, hs, tw, false, false,
+                            false);
     else
-      rsp_int_stage(xr, xi, base, stride, hs, tw, expanding, lsb, grown);
+      rsp_int_stage<kSlots>(xr, xi, base, stride, hs, tw, expanding, lsb,
+                            grown);
   }
 }
 
@@ -117,15 +123,16 @@ static __device__ __forceinline__ void rsp_int_front_rows(
   __syncthreads();
 }
 
-// Kernel F's CA/GO/SO tail of cells i0 .. i0 + 15 of one frame: `rw` the
-// frame's magnitudes at rsp_mag_slot(RSP_PAD + cell), zero at and beyond
-// n_active and outside the frame; C = min(w, 16) windows of each side at a
-// time. Writes thr[i0 .. i0 + 16) and peaks[i0 .. i0 + 16), both 16-byte
-// aligned.
+// Kernel F's CA/GO/SO tail of cells i0 .. i0 + 15 of a row whose cell 0 is
+// the frame's cell `org` (0 for a whole frame; a tile's first cell in
+// int_split.cu): `rw` the row's magnitudes at rsp_mag_slot(RSP_PAD + cell),
+// zero at and beyond n_active and outside the frame; C = min(w, 16) windows
+// of each side at a time. Writes thr[i0 .. i0 + 16) and peaks[i0 .. i0 +
+// 16), both 16-byte aligned.
 template <int C>
 static __device__ __forceinline__ void rsp_int_ca_runs(
     const int* rw, int i0, const RspIntRegs& r, int* __restrict__ thr,
-    uint8_t* __restrict__ peaks) {
+    uint8_t* __restrict__ peaks, int org = 0) {
   const int w = 1 << r.log2w, g = r.guard, hi = r.n_active;
   const uint32_t* uw = reinterpret_cast<const uint32_t*>(rw);
   int t[16];
@@ -136,7 +143,7 @@ static __device__ __forceinline__ void rsp_int_ca_runs(
     rsp_run_sums<C>(uw, i0 + c0 - g - w, i0 + c0 + g + 1, w, lag, lead);
 #pragma unroll
     for (int k = 0; k < C; ++k) {
-      const int j = c0 + k, i = i0 + j;
+      const int j = c0 + k, i = i0 + j, f = org + i;  // f: in the frame
       const int m = rw[rsp_mag_slot(RSP_PAD + i)];
       const int th = rsp_int_threshold(
           rsp_int_combine(r.cfar_mode, (int)lag[k] >> r.div_sum,
@@ -144,13 +151,13 @@ static __device__ __forceinline__ void rsp_int_ca_runs(
           r);
       bool p = m > th;
       if (p && r.peak_grouping == 1) {
-        const int left = i >= 1 ? rw[rsp_mag_slot(RSP_PAD + i - 1)]
+        const int left = f >= 1 ? rw[rsp_mag_slot(RSP_PAD + i - 1)]
                                 : RSP_PEAK_EDGE;
-        const int right = i + 1 < hi ? rw[rsp_mag_slot(RSP_PAD + i + 1)]
+        const int right = f + 1 < hi ? rw[rsp_mag_slot(RSP_PAD + i + 1)]
                                      : RSP_PEAK_EDGE;
         p = m >= left && m >= right;
       }
-      const bool active = i < hi;
+      const bool active = f < hi;
       t[j] = active ? th : 0;
       if (active && p) pk[j >> 2] |= 1u << (8 * (j & 3));
     }

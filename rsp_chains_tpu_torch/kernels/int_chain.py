@@ -17,12 +17,13 @@
   ones the split route.
 * The split route of F and G for frames of N > ``2**MAX_LOG2N`` (CUDA source
   ``csrc/int_split.cu``, entry ``rsp_int_split``, counted as
-  ``chain_int_split`` and ``chain_int_gos_split``): a head launch runs the
-  first L - 14 FFT stages on groups of cells in registers, a body launch the
-  last 14 on each sub-frame of 16384 cells in shared memory and writes the
-  magnitude in natural order, a tail launch F's CA sums or G's rank
-  statistics over tiles of the magnitude row; 12 bytes a sample of scratch,
-  allocated a call.
+  ``chain_int_split`` and ``chain_int_gos_split``): head launches run the
+  first L - 13 FFT stages on groups of cells in registers (up to five
+  stages a launch), a body launch the last 13 on each sub-frame of 8192
+  cells on F's register row plan and stores each sub-frame's magnitudes as
+  one contiguous run, a tail launch F's run-sum CA or G's rank statistics
+  over tiles of 4096 cells read back from those runs; 12 bytes a sample of
+  scratch, allocated a call.
 * ``int_chain_fusable`` and ``fused_chain_int_op``, the ports of
   ``int_chain_pallas.py:660-686`` and ``:689-779``: host ``if``s on the
   registers choose Kernel F, Kernel G or the integer ops

@@ -889,6 +889,32 @@ def test_split_route_is_exact_at_its_stage_flags(dev, n, frames, fft):
                       ref(x, rt, fft_cfg, cfg.cfar))
 
 
+@pytest.mark.parametrize("variant, regs, kernel", [
+    (rsp.CfarVariant.CA, dict(cfar_algorithm=0, peak_grouping=1,
+                              cfar_fft_size=(1 << 18) - 3000),
+     "chain_int_split"),
+    (rsp.CfarVariant.GOSCA, dict(), "chain_int_gos_split"),
+], ids=["F", "G"])
+def test_split_route_is_exact_on_one_frame_of_2_18(dev, variant, regs,
+                                                   kernel):
+    """One frame of 2^18, the first size whose head takes five stages in
+    one launch; expanding and keepLSB stages in the head and the body;
+    exact against the plain version, one launch."""
+    n = 1 << 18
+    x = _int_iq((1, n), dev, seed=18, amp=20000)
+    cfg = _split_cfg(variant, n)
+    fft_cfg = _fft(n, expand=(1, 4, 8), lsb=(0, 5, 12))
+    rt = rsp.RuntimeConfig.make(**{"fft_size": n, **GOS, **regs})
+    fn, ref = ((kint.chain_int, kint.chain_int_reference)
+               if kernel == "chain_int_split" else
+               (kint.chain_int_gos, kint.chain_int_gos_reference))
+    before = _build.LAUNCHES[kernel]
+    got = fn(x, rt, fft_cfg, cfg.cfar)
+    assert _build.LAUNCHES[kernel] == before + 1
+    _assert_exact(got, ref(x, rt, fft_cfg, cfg.cfar))
+    assert bool(got.peaks.any())
+
+
 def test_split_route_register_writes_build_once(dev):
     chain = rsp.fft_mag_cfar_chain(_split_cfg(rsp.CfarVariant.GOSCA, 32768))
     x = _int_iq((2, 32768), dev)
