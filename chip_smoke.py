@@ -90,29 +90,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    times Kernel B at its points (the headline, the fft_size 512 spectrum, a
    GOSCA elaboration's CA registers, the range-Doppler map, the given
    magnitude of the 1 x 4 mesh) and frame sizes, Kernel I at its frame
-   sizes, Kernel E at its two wire points, Kernels A, F, G and H at the
-   headline and the split route of F and G at each of its sizes
-   (``tail_times``: by CUDA events, on the card alone with the host's
+   sizes, Kernel E at its two wire points, Kernels A, D (also under CASH
+   registers), F, G and H at the headline, Kernels C, D and G at the
+   windows 8, 32 and 64, each also with the algorithm register at 0, where
+   the CA sums take the rank selection's place (the difference is the
+   selection's own time), and the split route of F and G at each of its
+   sizes (``tail_times``: by CUDA events, on the card alone with the host's
    launches queued ahead, and the host time a call); times the split
    route of F and G at each of its sizes through the chain too, with a
    profile of its head, body and tail launches at 512 x 32768;
    times Kernel F's row plan beside its frame-per-block kernel on the same
    frames of 1024 (the bench's stage flags, and seven expanding stages);
-   times Kernels C, D and G at the windows 8, 32 and 64, each also with the
-   algorithm register at 0, where the CA sums take the rank selection's
-   place (the difference is the selection's own time); times, as a
-   yardstick for Kernel H's range rows and used nowhere in the port,
-   ``torch.fft.fft`` + ``torch.fft.ifft`` over the same 16,384 rows of
-   1024; prints the registers, spills and stack frames of A's, E's, I's and
-   F's row kernels, the split route's kernels, B, C, D, G and the range-row
-   kernels from the ``-Xptxas -v`` report; builds A's, E's, F's, I's and
-   B's five sources once more at 1, 2, 3 and 4 blocks an SM
+   times, as a yardstick for Kernel H's range rows and used nowhere in the
+   port, ``torch.fft.fft`` + ``torch.fft.ifft`` over the same 16,384 rows
+   of 1024; prints the registers, spills and stack frames of A's, D's,
+   E's, F's, G's and I's row kernels, the split route's kernels, B, C,
+   G's frame-per-block kernel and the range-row kernels from the
+   ``-Xptxas -v`` report; builds A's, D's, E's, F's, G's, I's and B's
+   seven sources once more at 1, 2, 3 and 4 blocks an SM
    (``-DRSP_ROWS_BLOCKS``, ``-DRSP_E_BLOCKS``, ``-DRSP_B_BLOCKS``), each
    build checked against the plain versions (I at N = 4096), with its
    registers, and timed;
 6. profiles the full-size kernel path, the plain path, the shrunken-size
    kernel path, the default chain's GOS path, the bit-true GOSCA chain's
-   GOS path, the range-Doppler kernel path (``rd_ca``), its map
+   GOS path, Kernels D and G at frames of 256 and 512, the range-Doppler
+   kernel path (``rd_ca``), its map
    (``rd_map``) and plain paths, the 2-D detector (``rd_2d``) and the
    range-sharded tail: device time per call of each stage and of the
    busiest device kernels (for the range-Doppler kernels, the Doppler and
@@ -198,8 +200,8 @@ INT_OPS_PER_S = FP32_OPS_PER_S / 2
 # side's two 1.15 products, each two multiply-adds (the rounding constant
 # the first one's addend) and a shift (2 x 3)
 INT_BUTTERFLY_OPS = 8 + 2 + 1 + 6
-# the blocks an SM at which Kernels A's, F's and I's row kernels and B are
-# compared
+# the blocks an SM at which the row kernels of Kernels A, D, E, F, G and I
+# and Kernel B are compared
 ROW_BLOCKS = (1, 2, 3, 4)
 # the card's spin while the host queues the calls ``device_ms`` times: ~60 ms
 # at the H100's clock, above 30 calls of a few launches' host time
@@ -599,12 +601,28 @@ def at_size(c, n: int):
                                                         max_fft_size=n))
 
 
+def sel_registers(w: int, g: int):
+    """GOS_REGS at the window w and guard g, divSum log2 w, ranks w / 2."""
+    import rsp_chains_tpu_torch as rsp
+
+    return rsp.RuntimeConfig.make(**{
+        **GOS_REGS, "ref_window_size": w, "guard_window_size": g,
+        "div_sum": w.bit_length() - 1, "index_lagg": w // 2,
+        "index_lead": w // 2})
+
+
+def sel_label(name: str, w: int, g: int, alg: int) -> str:
+    return (f"{name} at {'x'.join(map(str, SHAPE))}, GOS registers at w {w} "
+            f"g {g}, algorithm {alg}")
+
+
 def tail_times(dev, profiles: bool = False) -> dict:
     """Kernel B at its points and frame sizes and Kernel I at its frame
     sizes, with Kernel A at the headline beside them as a yardstick, Kernel
-    E at the wire points, Kernels F, G and H at the headline and the split
-    route of F and G at SPLIT_SHAPES; each on seeded inputs of SHAPE's
-    samples: (median ms by CUDA events, on the card alone (``device_ms``),
+    E at the wire points, Kernels D, F, G and H at the headline (D under GOS
+    and CASH registers), Kernels C, D and G at each of SEL_WINDOWS with the
+    algorithm register at 1 and at 0, and the split route of F and G at
+    SPLIT_SHAPES; each on seeded inputs of SHAPE's samples: (median ms by CUDA events, on the card alone (``device_ms``),
     host ms a call). Only entry points that every version of the port since
     its sharded chains has are called (the split route's since it came),
     so ``--compare`` runs it on an earlier checkout too. With ``profiles``
@@ -670,6 +688,11 @@ def tail_times(dev, profiles: bool = False) -> dict:
             lambda: kint.chain_int(xi, rt, icfg.fft, icfg.cfar),
         "chain_int_gos at 64x256x1024, GOS registers":
             lambda: kint.chain_int_gos(xi, grt, igcfg.fft, igcfg.cfar),
+        "chain_gos at 64x256x1024, GOS registers":
+            lambda: kchain.chain_gos(x, grt, gcfg.fft, gcfg.cfar),
+        "chain_gos at 64x256x1024, CASH registers":
+            lambda r=grt.merge_regs(cfar_mode=3, sub_window_size=8):
+            kchain.chain_gos(x, r, gcfg.fft, gcfg.cfar),
         "mag_cfar at 64x256x1024, headline":
             lambda: kcfar.mag_cfar(spec, rt, cfg.cfar),
         "mag_cfar at 64x256x1024, fft_size 512 spectrum":
@@ -684,6 +707,16 @@ def tail_times(dev, profiles: bool = False) -> dict:
                            mag_given=True)
             for e, (lo, hi) in zip(exts, shards)],
     }
+    for (w, g), alg in ((wg, a) for wg in SEL_WINDOWS for a in (1, 0)):
+        r = sel_registers(w, g).merge_regs(cfar_algorithm=alg)
+        for name, fn in (
+                ("chain_gos", lambda r=r: kchain.chain_gos(
+                    x, r, gcfg.fft, gcfg.cfar)),
+                ("mag_gos_cfar", lambda r=r: kcfar.mag_gos_cfar(
+                    spec, r, gcfg.cfar)),
+                ("chain_int_gos", lambda r=r: kint.chain_int_gos(
+                    xi, r, igcfg.fft, igcfg.cfar))):
+            points[sel_label(name, w, g, alg)] = fn
     for n, v in b_frame_sizes(dev, samples).items():
         points[f"mag_cfar at {v.shape[0]}x{n}, headline registers"] = (
             lambda v=v, r=rt.merge_regs(cfar_fft_size=n):
@@ -716,17 +749,18 @@ def tail_times(dev, profiles: bool = False) -> dict:
 
 
 def row_blocks(card: str, x, xi, spec, rt, cfg, x2, rt_pc, pc_cfg,
-               h_pc, words) -> None:
-    """Kernels A's, E's, F's and I's row kernels and Kernel B built with
-    each of ``ROW_BLOCKS`` blocks an SM in their launch bounds
-    (``-DRSP_ROWS_BLOCKS``, ``-DRSP_B_BLOCKS``; only their five sources, all
-    builds at once), each held against its plain version on the frames
-    ``x`` (A at the bench bar), ``words`` (E at the wire bar), ``xi`` (F
-    equal), ``x2`` (I at N = 4096, the bench bar) and the spectrum ``spec``
-    (B, the bench bar), with its registers, spills and stack, and timed in
-    turns (``ROW_BLOCKS``, then reversed), each time the mean of its two.
-    The entries are called directly, so the times hold little host
-    work."""
+               h_pc, words, grt, gcfg, igcfg) -> None:
+    """The row kernels of Kernels A, D, E, F, G and I and Kernel B built
+    with each of ``ROW_BLOCKS`` blocks an SM in their launch bounds
+    (``-DRSP_ROWS_BLOCKS``, ``-DRSP_E_BLOCKS``, ``-DRSP_B_BLOCKS``; only
+    their seven sources, all builds at once), each held against its plain
+    version on the frames ``x`` (A at the bench bar; D under the GOS
+    registers ``grt`` of ``gcfg``, the bench bar), ``words`` (E at the wire
+    bar), ``xi`` (F, and G under ``grt`` of ``igcfg``, equal), ``x2`` (I at
+    N = 4096, the bench bar) and the spectrum ``spec`` (B, the bench bar),
+    with its registers, spills and stack, and timed in turns
+    (``ROW_BLOCKS``, then reversed), each time the mean of its two. The
+    entries are called directly, so the times hold little host work."""
     import ctypes
 
     import torch
@@ -738,8 +772,8 @@ def row_blocks(card: str, x, xi, spec, rt, cfg, x2, rt_pc, pc_cfg,
     from rsp_chains_tpu_torch.kernels import int_chain as kint
     from rsp_chains_tpu_torch.ops.fft import fft_scale
 
-    sources = ("chain_ca.cu", "wire_ca.cu", "chain_int.cu", "pc_ca.cu",
-               "mag_cfar.cu")
+    sources = ("chain_ca.cu", "chain_gos.cu", "wire_ca.cu", "chain_int.cu",
+               "chain_int_gos.cu", "pc_ca.cu", "mag_cfar.cu")
     flags = [(f"-DRSP_ROWS_BLOCKS={b}", f"-DRSP_B_BLOCKS={b}",
               f"-DRSP_E_BLOCKS={b}") for b in ROW_BLOCKS]
     t0 = time.perf_counter()
@@ -754,11 +788,22 @@ def row_blocks(card: str, x, xi, spec, rt, cfg, x2, rt_pc, pc_cfg,
                          kchain._row_twiddles(n, dev).data_ptr(),
                          n.bit_length() - 1, fft_scale(n, cfg.fft),
                          kcfar.ca_registers(rt, cfg.cfar, n))),
+        "chain_gos": ("rsp_chain_gos", [P, I, ctypes.c_float, kcfar.GosRegs],
+                      x, torch.float32, (
+                          kchain._row_twiddles(n, dev).data_ptr(),
+                          n.bit_length() - 1, fft_scale(n, gcfg.fft),
+                          kcfar.gos_registers(grt, gcfg.cfar, n))),
         "chain_int": ("rsp_chain_int_rows", [P, I, I, I, kint.IntRegs], xi,
                       torch.int32, (
                           kint._int_twiddles(n, dev).data_ptr(),
                           n.bit_length() - 1, *kint.fft_masks(cfg.fft, n),
                           kint.int_registers(rt, cfg.cfar, n))),
+        "chain_int_gos": ("rsp_chain_int_gos_rows",
+                          [P, I, I, I, kint.IntRegs], xi, torch.int32, (
+                              kint._int_twiddles(n, dev).data_ptr(),
+                              n.bit_length() - 1,
+                              *kint.fft_masks(igcfg.fft, n),
+                              kint.int_registers(grt, igcfg.cfar, n))),
         "pc_ca": ("rsp_pc_ca", [P, P, I, ctypes.c_float, kcfar.CaRegs], x2,
                   torch.float32, (
                       kchain._row_twiddles(n2, dev).data_ptr(),
@@ -808,6 +853,10 @@ def row_blocks(card: str, x, xi, spec, rt, cfg, x2, rt_pc, pc_cfg,
     want_f = kint.chain_int_reference(xi, rt, cfg.fft, cfg.cfar)
     want_i = kchain.pc_ca_reference(x2, rt_pc, pc_cfg.fft, pc_cfg.cfar, h_pc)
     want_b = kcfar.mag_cfar_reference(spec, rt, cfg.cfar)
+    want_d = chunked(lambda c: kchain.chain_gos_reference(
+        c, grt, gcfg.fft, gcfg.cfar), x)
+    want_g = chunked(lambda c: kint.chain_int_gos_reference(
+        c, grt, igcfg.fft, igcfg.cfar), xi)
     runs = {}
     for b, f, lib in zip(ROW_BLOCKS, flags, libs):
         for name, (entry, types, v, dtype, args) in kernels.items():
@@ -818,12 +867,17 @@ def row_blocks(card: str, x, xi, spec, rt, cfg, x2, rt_pc, pc_cfg,
                       f"wire_ca, {b} blocks an SM")
         compare_exact(runs["chain_int", b](), want_f,
                       f"chain_int, {b} blocks an SM")
+        compare(runs["chain_gos", b](), want_d, f"chain_gos, {b} blocks an SM")
+        compare_exact(runs["chain_int_gos", b](), want_g,
+                      f"chain_int_gos, {b} blocks an SM")
         compare(runs["pc_ca", b](), want_i, f"pc_ca, {b} blocks an SM")
         compare(runs["mag_cfar", b](), want_b, f"mag_cfar, {b} blocks an SM")
         for name, (regs, st, ld, stack) in ptxas_report(
                 _build.build_log(sources, f), ("rsp_chain_ca_rows_kernel",
+                                               "rsp_chain_gos_rows_kernel",
                                                "rsp_wire_ca_rows_kernel",
                                                "rsp_chain_int_rows_kernel",
+                                               "rsp_chain_int_gos_rows_kernel",
                                                "rsp_pc_ca_rows_kernel",
                                                "rsp_mag_cfar_kernel")
         ).items():
@@ -3055,31 +3109,17 @@ def main() -> int:
               f"{card}")
 
     # ---- the rank selection of Kernels C, D and G on its own ----
-    # each kernel called directly at the GOS registers over the windows of
-    # SEL_WINDOWS, and at each window with the algorithm register at 0,
-    # where the CA sums take the selection's place: the difference is the
-    # selection's time. Timed in turns (1, 0, 0, 1), each the mean of its two
+    # each kernel at the GOS registers over the windows of SEL_WINDOWS, and
+    # at each window with the algorithm register at 0, where the CA sums
+    # take the selection's place (tail_times, on the card alone): the
+    # difference is the selection's time
     for w, g in SEL_WINDOWS:
-        rt_w = rsp.RuntimeConfig.make(**{
-            **GOS_REGS, "ref_window_size": w, "guard_window_size": g,
-            "div_sum": w.bit_length() - 1, "index_lagg": w // 2,
-            "index_lead": w // 2})
-        rt_0 = rt_w.merge_regs(cfar_algorithm=0)
-        for name, fn in (
-                ("chain_gos", lambda r: kchain.chain_gos(x, r, gcfg.fft,
-                                                         gcfg.cfar)),
-                ("mag_gos_cfar", lambda r: kcfar.mag_gos_cfar(spec, r,
-                                                              gcfg.cfar)),
-                ("chain_int_gos", lambda r: kint.chain_int_gos(
-                    xi16, r, igcfg.fft, igcfg.cfar))):
-            t1, t0, t0b, t1b = (time_ms(lambda r=r: fn(r))
-                                for r in (rt_w, rt_0, rt_0, rt_w))
-            ms1, ms0 = (t1 + t1b) / 2, (t0 + t0b) / 2
+        for name in ("chain_gos", "mag_gos_cfar", "chain_int_gos"):
+            ms1, ms0 = (tails[sel_label(name, w, g, a)][1] for a in (1, 0))
             print(f"{name} at w {w} g {g} ranks {w // 2}/{w // 2}, "
-                  f"{'x'.join(map(str, SHAPE))}: {ms1:.4f} ms "
-                  f"({t1:.4f}, {t1b:.4f}); algorithm 0 (CA sums) "
-                  f"{ms0:.4f} ms ({t0:.4f}, {t0b:.4f}); the selection "
-                  f"{ms1 - ms0:.4f} ms; card {card}")
+                  f"{'x'.join(map(str, SHAPE))}, on the card alone: "
+                  f"{ms1:.4f} ms; algorithm 0 (CA sums) {ms0:.4f} ms; the "
+                  f"selection {ms1 - ms0:.4f} ms; card {card}")
     for name, (regs, st, ld, stack) in ptxas_report(
             _build.build_log(), ("rsp_chain_ca_rows_kernel",
                                  "rsp_wire_ca_rows_kernel",
@@ -3089,15 +3129,17 @@ def main() -> int:
                                  "rsp_pc_ca_rows_kernel",
                                  "rsp_mag_cfar_kernel",
                                  "rsp_chain_int_rows_kernel",
-                                 "rsp_chain_gos_kernel",
+                                 "rsp_chain_gos_rows_kernel",
                                  "rsp_mag_gos_cfar_kernel",
+                                 "rsp_chain_int_gos_rows_kernel",
                                  "rsp_chain_int_gos_kernel",
                                  "rsp_rd_rows_kernel")).items():
         print(f"ptxas -v {name}: {regs} registers, {st} B spill stores, "
               f"{ld} B spill loads, {stack} B stack frame")
 
-    # ---- A's, F's, I's row kernels and B at 1-4 blocks an SM ----
-    row_blocks(card, x, xi16, spec, rt, cfg, x2, rt_pc, pc_cfg, h_pc, words)
+    # ---- the row kernels of A, D, E, F, G, I and B at 1-4 blocks an SM ----
+    row_blocks(card, x, xi16, spec, rt, cfg, x2, rt_pc, pc_cfg, h_pc, words,
+               grt, gcfg, igcfg)
 
     # ---- a yardstick for the range rows' FFT pair (never on the path) ----
     rows = torch.complex(x.re, x.im).reshape(-1, SHAPE[-1])
@@ -3190,6 +3232,18 @@ def main() -> int:
             gchain.stage_names)
     profile(lambda: igchain(xi16, grt), "bit-true GOSCA chain, GOS registers",
             igchain.stage_names)
+    # Kernels D and G at their smaller frames: the launches' names
+    for n in (256, 512):
+        xn, xin = (rsp.C(v.re.reshape(-1, n), v.im.reshape(-1, n))
+                   for v in (x, xi16))
+        rt_n = grt.merge_regs(fft_size=n)
+        for name, fn, c, v in (("chain_gos", kchain.chain_gos, gcfg, xn),
+                               ("chain_int_gos", kint.chain_int_gos, igcfg,
+                                xin)):
+            profile(lambda fn=fn, c=at_size(c, n), v=v: fn(v, rt_n, c.fft,
+                                                           c.cfar),
+                    f"{name} at {v.shape[0]}x{n}, GOS registers", (),
+                    calls=5, top=1)
     profile(lambda: rd_chain(x, rt), "range-Doppler kernel path",
             rd_chain.stage_names)
     profile(lambda: krd.fused_rd_chain(x, rt, taps, rd_cfg, emit="map"),

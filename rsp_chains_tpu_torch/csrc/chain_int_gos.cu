@@ -1,5 +1,5 @@
 // Kernel G: the bit-true integer GOSCA chain, integer FFT -> magnitude ->
-// CA / GOS CFAR muxed by the algorithm register, one thread block per frame.
+// CA / GOS CFAR muxed by the algorithm register.
 //
 // Replaces rsp_chains_tpu/kernels/int_chain_pallas.py::fused_chain_int_gos
 // (:552, pallas_call :622; body `_int_gos_kernel` :302-438). Kernel F's front
@@ -11,7 +11,7 @@
 //
 // The TPU sorts every window with a sliding odd-even merge ladder of lane
 // rotations. Here the selection is the warp-resident sliding sorted window
-// of Kernels C and D (gos_cfar.cuh, `rsp_gos_stats`) on int32: each warp
+// of Kernels C and D (gos_cfar.cuh, `rsp_gos_ranks`) on int32: each warp
 // keeps its window's active cells sorted in registers, INT32_MAX under signed
 // compares past the nv active ones (the order and padding of the integer
 // ops, which sort an invalid cell as int32 max), and the lane holding each
@@ -20,17 +20,32 @@
 // is the integer pipeline's bit for bit, ties and square sums saturated to
 // INT32_MAX included.
 //
-// Bound on the H100: device memory for the function (13 bytes a cell); the
-// kernel is held by Kernel F's integer FFT front (shared-memory radix-2
-// stages) and, as in C and D, the selection's pipe to shared memory and
-// shuffles, about 6 SM clocks a window start at w = 32. Shared memory: the
-// magnitude row and the frame, whose space the two statistic rows take once
-// the front is done (3 * (N + 2*RSP_PAD) ints): 13,824 bytes at N = 1024,
-// 199,680 at N = 16384.
+// Bound on the H100: device memory for the function (13 bytes a cell, 0.065
+// ms at 64 x 256 frames of 1024); the kernel is held, as C and D, by the
+// selection's pipe to shared memory and shuffles (gos_cfar.cuh,
+// gos_rows.cuh). Two routes, chosen on the host by N alone
+// (kernels/int_chain.py; the split route beyond N = 16384 is int_split.cu):
+//
+// * N = 256, 512, 1024 (rsp_chain_int_gos_rows_kernel<N>, entry
+//   rsp_chain_int_gos_rows): Kernel F's row plan, N / 16 threads a frame and
+//   256 / (N / 16) frames a block, each stage's butterflies in registers, 1
+//   or 2 exchanges through shared memory and the magnitude stored at its
+//   natural bin (`rsp_int_front_rows`, int_rows.cuh); then the selection
+//   over the block's frames with the ranks kept by cell in the dead FFT
+//   planes (gos_rows.cuh), and a tail whose thread takes the cells
+//   m + (N / 16) k, a warp's stores coalesced; with algorithm 0 F's
+//   run-sum CA tail (`rsp_int_ca_runs`). 55,552 bytes of shared memory a
+//   block at N = 1024 (RspGosRows), three blocks an SM (RSP_ROWS_BLOCKS).
+// * N = 2048 .. 16384 (rsp_chain_int_gos_kernel, entry rsp_chain_int_gos):
+//   one frame a block, the frame-per-block front `rsp_int_front` (a
+//   __syncthreads() a butterfly stage), the magnitude row and the frame,
+//   whose space the two statistic rows take once the front is done
+//   (3 * (N + 2*RSP_PAD) ints, 199,680 bytes at N = 16384).
 #include <cuda_runtime.h>
 
-#include "gos_cfar.cuh"
+#include "gos_rows.cuh"
 #include "int_front.cuh"
+#include "int_rows.cuh"
 
 __global__ void __launch_bounds__(RSP_THREADS)
 rsp_chain_int_gos_kernel(const int* __restrict__ re,
@@ -90,7 +105,8 @@ rsp_chain_int_gos_kernel(const int* __restrict__ re,
 
 // re, im, thr: int32 [frames, 2^log2n]; peaks: uint8 [frames, 2^log2n];
 // tw: int32 [2^log2n, 2] (see rsp_int_fft); all contiguous on the current
-// device, 8 <= log2n <= 14. Launches on `stream`; returns cudaGetLastError().
+// device, 8 <= log2n <= 14 (kernels/int_chain.py takes it for 11 and up).
+// Launches on `stream`; returns cudaGetLastError().
 extern "C" int rsp_chain_int_gos(const int* re, const int* im, int* thr,
                                  uint8_t* peaks, int frames,
                                  cudaStream_t stream, const int* tw, int log2n,
@@ -108,4 +124,117 @@ extern "C" int rsp_chain_int_gos(const int* re, const int* im, int* thr,
       re, im, reinterpret_cast<const int2*>(tw), thr, peaks, log2n,
       (unsigned)expand_mask, (unsigned)lsb_mask, regs);
   return (int)cudaGetLastError();
+}
+
+// The thresholds and peaks of a frame's cells m + kT j (j < 16), one
+// thread's, from their lag and lead rank statistics st0 / st1[cell]: the
+// mode, the threshold, peak grouping on the raw magnitudes of rw
+// (rsp_mag_slot) and the active mask of `rsp_int_thr_peak`.
+template <int kT>
+static __device__ __forceinline__ void rsp_int_gos_cells(
+    const int* rw, const int* st0, const int* st1, int m, const RspIntRegs& r,
+    int* __restrict__ thr, uint8_t* __restrict__ pk) {
+  const int hi = r.n_active;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int i = m + kT * j;
+    const int th = rsp_int_threshold(
+        rsp_int_combine(r.cfar_mode, st0[i], st1[i]), r);
+    const int v = rw[rsp_mag_slot(RSP_PAD + i)];
+    bool p = v > th;
+    if (p && r.peak_grouping == 1) {
+      const int left = i >= 1 ? rw[rsp_mag_slot(RSP_PAD + i - 1)]
+                              : RSP_PEAK_EDGE;
+      const int right = i + 1 < hi ? rw[rsp_mag_slot(RSP_PAD + i + 1)]
+                                   : RSP_PEAK_EDGE;
+      p = v >= left && v >= right;
+    }
+    const bool active = i < hi;
+    thr[i] = active ? th : 0;
+    pk[i] = active && p ? 1 : 0;
+  }
+}
+
+// Kernel G over `frames` frames of kN cells. Grid ceil(frames / kRows).
+template <int kN>
+__global__ void __launch_bounds__(RSP_THREADS, RSP_ROWS_BLOCKS)
+rsp_chain_int_gos_rows_kernel(const int* __restrict__ re,
+                              const int* __restrict__ im,
+                              const int2* __restrict__ tw,
+                              int* __restrict__ thr,
+                              uint8_t* __restrict__ peaks, int frames,
+                              unsigned expand_mask, unsigned lsb_mask,
+                              RspIntRegs r) {
+  using P = RspRowPlan<kN>;
+  constexpr int T = P::kT;
+  extern __shared__ int ismem[];
+  const int q = threadIdx.x / T, m = threadIdx.x % T;
+  const int row = blockIdx.x * P::kRows + q;
+  const bool live = row < frames;
+  const size_t base = (size_t)row * kN;
+  int* pr = ismem + q * P::kS;  // this frame's planes of the FFT buffer
+  int* pi = pr + P::kRows * P::kS;
+  int* rw = ismem + 2 * P::kRows * P::kS + q * RspGosRows<kN>::kMag;
+
+  // ends with a barrier: the magnitude rows are whole, the planes dead
+  rsp_int_front_rows<kN>(re, im, base, live, m, tw, pr, pi, rw, expand_mask,
+                         lsb_mask, r);
+  int* t = thr + base;
+  uint8_t* pk = peaks + base;
+  if (r.algorithm == 1) {
+    const int rows = min(P::kRows, frames - (int)blockIdx.x * P::kRows);
+    rsp_gos_rows_stats<kN>(ismem, rows, 1 << r.log2w, r.guard, 0, r.n_active,
+                           r.rank_lagg, r.rank_lead);
+    __syncthreads();
+    if (!live) return;
+    rsp_int_gos_cells<T>(rw, pr, pi, m, r, t, pk);
+    return;
+  }
+  if (!live) return;
+  switch (r.log2w) {
+    case 0: rsp_int_ca_runs<1>(rw, 16 * m, r, t, pk); break;
+    case 1: rsp_int_ca_runs<2>(rw, 16 * m, r, t, pk); break;
+    case 2: rsp_int_ca_runs<4>(rw, 16 * m, r, t, pk); break;
+    case 3: rsp_int_ca_runs<8>(rw, 16 * m, r, t, pk); break;
+    default: rsp_int_ca_runs<16>(rw, 16 * m, r, t, pk); break;
+  }
+}
+
+template <int kN>
+static int rsp_chain_int_gos_rows_launch(const int* re, const int* im,
+                                         int* thr, uint8_t* peaks, int frames,
+                                         cudaStream_t stream, const int* tw,
+                                         unsigned expand_mask,
+                                         unsigned lsb_mask, RspIntRegs regs) {
+  using P = RspRowPlan<kN>;
+  const size_t smem = (size_t)RspGosRows<kN>::kFloats * sizeof(int);
+  const cudaError_t e = rsp_opt_in(rsp_chain_int_gos_rows_kernel<kN>, smem);
+  if (e != cudaSuccess) return (int)e;
+  rsp_chain_int_gos_rows_kernel<kN><<<(frames + P::kRows - 1) / P::kRows,
+                                      RSP_THREADS, smem, stream>>>(
+      re, im, reinterpret_cast<const int2*>(tw), thr, peaks, frames,
+      expand_mask, lsb_mask, regs);
+  return (int)cudaGetLastError();
+}
+
+// As rsp_chain_int_gos, for 8 <= log2n <= 10.
+extern "C" int rsp_chain_int_gos_rows(const int* re, const int* im, int* thr,
+                                      uint8_t* peaks, int frames,
+                                      cudaStream_t stream, const int* tw,
+                                      int log2n, int expand_mask,
+                                      int lsb_mask, RspIntRegs regs) {
+  const unsigned em = (unsigned)expand_mask, lm = (unsigned)lsb_mask;
+  switch (log2n) {
+    case 8:
+      return rsp_chain_int_gos_rows_launch<256>(re, im, thr, peaks, frames,
+                                                stream, tw, em, lm, regs);
+    case 9:
+      return rsp_chain_int_gos_rows_launch<512>(re, im, thr, peaks, frames,
+                                                stream, tw, em, lm, regs);
+    case 10:
+      return rsp_chain_int_gos_rows_launch<1024>(re, im, thr, peaks, frames,
+                                                 stream, tw, em, lm, regs);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

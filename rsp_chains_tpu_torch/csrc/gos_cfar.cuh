@@ -1,7 +1,8 @@
-// Shared device functions of the GOSCA kernels (C: mag_gos_cfar.cu, D:
-// chain_gos.cu, and the rank selection of G: chain_int_gos.cu): the GOS /
-// GOSCA / CASH CFAR tail over one range tile of a frame's magnitude row in
-// shared memory.
+// Shared device functions of the GOSCA kernels: the rank selection of C
+// (mag_gos_cfar.cu), D (chain_gos.cu), G (chain_int_gos.cu) and G's split
+// route (int_split.cu), and Kernel C's GOS / GOSCA / CASH CFAR tail over one
+// range tile of a frame's magnitude row in shared memory. D and G run the
+// selection on the row plan's layout (gos_rows.cuh).
 //
 // Replaces, in rsp_chains_tpu/kernels/cfar_pallas.py, the v3 GOS body
 // `_gos_rows_init` (:1232) + `_gos_tail` (:1317). The TPU builds every
@@ -26,7 +27,10 @@
 // both sides; one pass of the selection finds both ranks.
 //
 // The rank selection (`rsp_gos_ranks`), templated on the value type (float
-// for C and D, the int32 magnitudes for G): each warp owns a contiguous run
+// for C and D, the int32 magnitudes for G) and on where it reads the cells
+// and puts the ranks (RspStartRows here: a row and two statistic rows
+// indexed by window start; gos_rows.cuh's RspCellRows for the row plan):
+// each warp owns a contiguous run
 // of window starts and keeps the active cells of its current window sorted
 // in registers, one slot a lane (two at w = 64), the type's top value (+inf,
 // INT32_MAX under signed compares) past the nv active ones. A bitonic sort
@@ -48,8 +52,7 @@
 // and two single-lane stores (the ranks), at one warp instruction a clock
 // an SM: about 6 SM clocks a start, some six times the time of the 13
 // bytes of device traffic a cell at w = 32. Loading four cells and storing four
-// ranks at a time would halve that pipe's share. Kernel D adds the FFT
-// front of Kernel A, Kernel G the integer front of Kernel F (int_front.cuh).
+// ranks at a time would halve that pipe's share.
 #pragma once
 
 #include <climits>
@@ -157,16 +160,47 @@ static __device__ __forceinline__ void rsp_slide(T& a, T& b, T vo, T vi,
   a = cur < vi ? cur : (lane > 0 && !(cur_prev < vi) ? cur_prev : vi);
 }
 
-// st0[s] / st1[s] for one warp's window starts s_a <= s < s_b: the
-// min(k, nv-1)-th smallest (k = k0 / k1) of the nv active cells of
-// row[s .. s + w), 0 where nv = 0; cell c of the row is active when
-// alo <= c < ahi. The warp keeps the window sorted in slot `lane` of `a`
-// and, for kWide (w = 64), slot 32 + lane of `b`; the top value past nv; the
-// lane holding a rank stores it. Every branch is uniform over the warp.
-template <bool kWide, typename T>
-static __device__ __forceinline__ void rsp_gos_ranks(
-    const T* __restrict__ row, T* st0, T* st1, int s_a, int s_b, int w,
-    int alo, int ahi, int k0, int k1) {
+// Where rsp_gos_ranks reads the cells and puts the ranks, for Kernel C's
+// tiles, Kernel G's frames of 2048 and more and the split route's tiles: the
+// row, and the two statistic rows indexed like it by window start; every
+// start keeps both ranks. (gos_rows.cuh's RspCellRows is the row plan's.)
+template <typename T>
+struct RspStartRows {
+  static constexpr bool kStaged = false;  // see rsp_gos_ranks
+  const T* __restrict__ row;
+  T* st0;
+  T* st1;
+  __device__ __forceinline__ T at(int c) const { return row[c]; }
+  // the starts between which every start keeps both ranks
+  __device__ __forceinline__ int both_lo() const { return INT_MIN; }
+  __device__ __forceinline__ int both_hi() const { return INT_MAX; }
+  __device__ __forceinline__ bool has_lag(int) const { return true; }
+  __device__ __forceinline__ bool has_lead(int) const { return true; }
+  // where the lag / lead rank of start s goes; start s + 1's follows it
+  __device__ __forceinline__ T* lag_at(int s) const { return st0 + s; }
+  __device__ __forceinline__ T* lead_at(int s) const { return st1 + s; }
+};
+
+// The rank statistics of one warp's window starts s_a <= s < s_b: the
+// min(k, nv-1)-th smallest (k = k0 for the lag rank, k1 for the lead rank)
+// of the nv active cells of the window of cells s .. s + w - 1 (rows.at),
+// 0 where nv = 0; cell c is active when alo <= c < ahi. The ranks go to
+// rows.lag_at(s) / rows.lead_at(s), where the policy keeps them. The warp
+// keeps the window sorted in slot `lane` of `a` and, for kWide (w = 64),
+// slot 32 + lane of `b`; the top value past nv; the lane holding a rank
+// stores it. Every branch is uniform over the warp. With Rows::kStaged the
+// policy reads the cells through a slot map (gos_rows.cuh), and the
+// whole-window starts go 16 at a time from one whose outgoing cell is
+// 16-aligned: the 16 outgoing cells lie contiguous in the slot map
+// (rows.run), so do the incoming ones where w is a multiple of 16, and
+// each of the chunk's loads and stores is a constant offset from a base:
+// the map's address arithmetic stays out of the per-start work, and the
+// chunk's 32 loads all go ahead of its slides, so no load waits behind a
+// rank store on the slide's chain of shuffles and compares.
+template <bool kWide, typename T, typename Rows>
+static __device__ __forceinline__ void rsp_gos_ranks(const Rows& rows, int s_a,
+                                                     int s_b, int w, int alo,
+                                                     int ahi, int k0, int k1) {
   const int lane = threadIdx.x & 31;
   const T inf = RspTop<T>::value();
   // cell c is active when (unsigned)(c - alo) < span
@@ -174,14 +208,14 @@ static __device__ __forceinline__ void rsp_gos_ranks(
   // the first window, row[s_a .. s_a + w), by a bitonic sort
   int c = s_a + lane;
   bool act = lane < w && (unsigned)(c - alo) < span;
-  T a = rsp_warp_sort(act ? row[c] : inf, lane);
+  T a = rsp_warp_sort(act ? rows.at(c) : inf, lane);
   int nv = __popc(__ballot_sync(RSP_FULL_WARP, act));
   T b = inf;
   if (kWide) {
     c += 32;
     act = (unsigned)(c - alo) < span;
     nv += __popc(__ballot_sync(RSP_FULL_WARP, act));
-    b = rsp_warp_sort(act ? row[c] : inf, lane);
+    b = rsp_warp_sort(act ? rows.at(c) : inf, lane);
     // a ascending then b reversed is bitonic: the half-cleaner leaves the
     // lesser half in a, then each half is merged
     const T t = __shfl_sync(RSP_FULL_WARP, b, 31 - lane);
@@ -196,23 +230,57 @@ static __device__ __forceinline__ void rsp_gos_ranks(
     const int j0 = max(min(k0, nv - 1), 0), j1 = max(min(k1, nv - 1), 0);
     const T x0 = kWide && j0 >= 32 ? b : a;
     const T x1 = kWide && j1 >= 32 ? b : a;
-    if (lane == (j0 & 31)) st0[s] = nv > 0 ? x0 : T(0);
-    if (lane == (j1 & 31)) st1[s] = nv > 0 ? x1 : T(0);
+    if (lane == (j0 & 31) && rows.has_lag(s))
+      *rows.lag_at(s) = nv > 0 ? x0 : T(0);
+    if (lane == (j1 & 31) && rows.has_lead(s))
+      *rows.lead_at(s) = nv > 0 ? x1 : T(0);
   };
   // the starts s whose slide keeps the whole window active (cells s - 1
-  // and s - 1 + w both active, nv == w throughout): no range tests, and the
-  // ranks stay in the same slots
-  const int f_lo = max(alo + 1, s_a + 1), f_hi = min(ahi - w + 1, s_b);
+  // and s - 1 + w both active, nv == w throughout) and which keep both
+  // ranks: no range tests, and the ranks stay in the same slots
+  const int f_lo = max(max(alo + 1, s_a + 1), rows.both_lo());
+  const int f_hi = min(min(ahi - w + 1, s_b), rows.both_hi());
   const int f0 = min(k0, w - 1), f1 = min(k1, w - 1);
   store(s_a);
   for (int s = s_a + 1; s < s_b; ++s) {
     if (s == f_lo && f_lo < f_hi) {
       const bool p0 = lane == (f0 & 31), p1 = lane == (f1 & 31);
-      do {
-        rsp_slide<kWide>(a, b, row[s - 1], row[s - 1 + w], lane);
-        if (p0) st0[s] = kWide && f0 >= 32 ? b : a;
-        if (p1) st1[s] = kWide && f1 >= 32 ? b : a;
-      } while (++s < f_hi);
+      const bool h0 = kWide && f0 >= 32, h1 = kWide && f1 >= 32;
+      const auto step = [&](int s) {
+        rsp_slide<kWide>(a, b, rows.at(s - 1), rows.at(s - 1 + w), lane);
+        if (p0) *rows.lag_at(s) = h0 ? b : a;
+        if (p1) *rows.lead_at(s) = h1 ? b : a;
+      };
+      if constexpr (Rows::kStaged) {
+        for (const int s16 = min(f_hi, ((s + 14) & ~15) + 1); s < s16; ++s)
+          step(s);
+        const auto chunks = [&](const auto& in) {
+          for (; s + 16 <= f_hi; s += 16) {
+            // the chunk's cells into registers before any of its stores,
+            // which the compiler may not move the loads past
+            const T* out = rows.run(s - 1);
+            T vo[16], vi[16];
+#pragma unroll
+            for (int t = 0; t < 16; ++t) {
+              vo[t] = out[t];
+              vi[t] = in(s - 1 + w, t);
+            }
+            T* lag = rows.lag_at(s);
+            T* lead = rows.lead_at(s);
+#pragma unroll
+            for (int t = 0; t < 16; ++t) {
+              rsp_slide<kWide>(a, b, vo[t], vi[t], lane);
+              if (p0) lag[t] = h0 ? b : a;
+              if (p1) lead[t] = h1 ? b : a;
+            }
+          }
+        };
+        if (kWide || (w & 15) == 0)
+          chunks([&](int c, int t) { return rows.run(c)[t]; });
+        else
+          chunks([&](int c, int t) { return rows.at(c + t); });
+      }
+      for (; s < f_hi; ++s) step(s);
       if (s == s_b) break;
     }
     // slide by one cell: row[s - 1] leaves, row[s - 1 + w] enters
@@ -220,7 +288,8 @@ static __device__ __forceinline__ void rsp_gos_ranks(
     const bool ao = (unsigned)(co - alo) < span;
     const bool ai = (unsigned)(ci - alo) < span;
     if (ao || ai) {
-      rsp_slide<kWide>(a, b, ao ? row[co] : inf, ai ? row[ci] : inf, lane);
+      rsp_slide<kWide>(a, b, ao ? rows.at(co) : inf, ai ? rows.at(ci) : inf,
+                       lane);
       nv += (int)ai - (int)ao;
     }
     store(s);
@@ -240,16 +309,17 @@ static __device__ __forceinline__ void rsp_gos_stats(
   const int s_a = s_lo + (int)(threadIdx.x >> 5) * per;
   const int s_b = min(s_a + per, s_hi);
   if (s_a >= s_b) return;
+  const RspStartRows<T> rows{row, st0, st1};
   if (w > 32)
-    rsp_gos_ranks<true>(row, st0, st1, s_a, s_b, w, alo, ahi, k0, k1);
+    rsp_gos_ranks<true, T>(rows, s_a, s_b, w, alo, ahi, k0, k1);
   else
-    rsp_gos_ranks<false>(row, st0, st1, s_a, s_b, w, alo, ahi, k0, k1);
+    rsp_gos_ranks<false, T>(rows, s_a, s_b, w, alo, ahi, k0, k1);
 }
 
-// `row`: shared memory [RSP_PAD | T | RSP_PAD] holding the magnitude of cells
-// ts - RSP_PAD .. ts + T + RSP_PAD - 1, zero outside the active range (and
-// outside the frame). `st0`, `st1`: shared scratch of T + 2*RSP_PAD floats
-// each, indexed like `row` by window start. The caller has synchronised
+// Kernel C's tail. `row`: shared memory [RSP_PAD | T | RSP_PAD] holding the
+// magnitude of cells ts - RSP_PAD .. ts + T + RSP_PAD - 1, zero outside the
+// active range (and outside the frame). `st0`, `st1`: shared scratch of
+// T + 2*RSP_PAD floats each, indexed like `row` by window start. The caller has synchronised
 // after filling the row. Writes threshold and peaks of cells ts .. ts+T-1 to
 // thr[0 .. T) and peaks[0 .. T).
 static __device__ __forceinline__ void rsp_gos_tail(

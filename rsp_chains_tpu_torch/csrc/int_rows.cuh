@@ -1,7 +1,8 @@
 // Kernel F's front and tail for frames of N = 256, 512 or 1024: the integer
 // FFT of int_front.cuh on the row plan of row_fft.cuh, and an integer
-// run-sum CA tail. The split route of F and G (int_split.cu) runs the same
-// passes on its sub-frames and the same tail on its tiles.
+// run-sum CA tail. Kernel G's frames of 256-1024 (chain_int_gos.cu) take the
+// same front, and the split route of F and G (int_split.cu) the same passes
+// on its sub-frames and the same tail on its tiles.
 //
 // * The passes: thread m of a frame's N / 16 holds the 16 cells m + (N / 16) k
 //   and runs the first four radix-2 DIF stages of `rsp_int_fft` on them in

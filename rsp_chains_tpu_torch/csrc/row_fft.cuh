@@ -1,10 +1,11 @@
 // The register-resident row FFT and the run-sum CA tail, shared by the range
-// rows of Kernels H and J (rd_front.cuh), Kernels A (chain_ca.cu), E
-// (wire_ca.cu) and I (pc_ca.cu), in integers Kernel F (int_rows.cuh), and
-// the tail alone by Kernel B (mag_cfar.cu). Kernel E gives the forward
+// rows of Kernels H and J (rd_front.cuh), Kernels A (chain_ca.cu), D
+// (chain_gos.cu, with the rank selection of gos_rows.cuh), E (wire_ca.cu)
+// and I (pc_ca.cu), in integers Kernels F and G (int_rows.cuh), and the
+// tail alone by Kernel B (mag_cfar.cu). Kernel E gives the forward
 // transform its own pass-1 load (`rsp_row_forward_with`: a functor) and the
-// tail its own store (`rsp_ca_row_with`: a policy); A, B, H and I take the
-// float planes and RspCaStore.
+// tail its own store (`rsp_ca_row_with`: a policy); A, B, D, H and I take
+// the float planes and RspCaStore.
 //
 // * The plan of a row of N = 256, 512, 1024, 2048 or 4096 cells
 //   (RspRowPlan): N / 16 threads a row (at most 256), 256 / (N / 16) rows a
@@ -35,8 +36,9 @@
 
 #include "ca_cfar.cuh"
 
-// Blocks an SM in the launch bounds of Kernels A's, F's and I's row kernels
-// (rsp_chain_ca_rows_kernel, rsp_chain_int_rows_kernel,
+// Blocks an SM in the launch bounds of Kernels A's, D's, F's, G's and I's
+// row kernels (rsp_chain_ca_rows_kernel, rsp_chain_gos_rows_kernel,
+// rsp_chain_int_rows_kernel, rsp_chain_int_gos_rows_kernel,
 // rsp_pc_ca_rows_kernel); chip_smoke.py builds and times them at 1 to 4
 // (`row_blocks`).
 #ifndef RSP_ROWS_BLOCKS

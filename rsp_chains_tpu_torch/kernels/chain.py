@@ -6,7 +6,9 @@ chain stages that honour the FFT-size and CFAR registers.
   ``pallas_call`` :1013); CUDA source ``csrc/chain_ca.cu``.
 * Kernel D, ``chain_gos``: GOS / GOSCA / CASH. Replaces
   ``chain_pallas.py::fused_chain_gos`` (:1221, ``pallas_call`` :1306); CUDA
-  source ``csrc/chain_gos.cu``.
+  source ``csrc/chain_gos.cu``, Kernel A's row plan with the warp-resident
+  rank selection of ``csrc/gos_cfar.cuh`` over the block's frames
+  (``csrc/gos_rows.cuh``).
 * Kernel E, ``wire_ca``: the wire top's CA chain, packed IQ beat words in,
   packed ``{threshold | bin | peak}`` words out. Replaces
   ``chain_pallas.py::fused_chain_ca_packed`` (:1042, ``pallas_call`` :1122);
@@ -22,13 +24,12 @@ chain stages that honour the FFT-size and CFAR registers.
 * ``fused_chain_ca_op``, ``fused_chain_gos_op`` and ``fused_wire_chain_op``,
   the ports of ``chain_pallas.py:1402``, ``:1350`` and ``:1432``.
 
-Kernels A, E and I run the register-resident row FFT of
+Kernels A, D, E and I run the register-resident row FFT of
 ``csrc/row_fft.cuh`` (Kernel H's range rows share it): radix-16 passes over
 ``ROW_RADICES``, the spectrum left in digit-reversed order (``row_order``)
 and each magnitude stored at its natural bin, the pass twiddles
-``row_twiddles``; I multiplies H in that order (``_permuted``). Kernel D
-keeps the radix-2 FFT front ``csrc/fft_radix2.cuh``. Each CUDA source says what bounds
-its kernel on the H100 and how its design answers. The spectrum stays on
+``row_twiddles``; I multiplies H in that order (``_permuted``). Each CUDA
+source says what bounds its kernel on the H100 and how its design answers. The spectrum stays on
 chip: a kernel reads the IQ pair once and writes threshold and peaks once. A
 wrapper launches its kernel for CUDA tensors and uses the plain version
 (``*_reference``) only for CPU tensors.
@@ -173,7 +174,7 @@ def chain_gos(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
         return chain_gos_reference(xp, rt, fft_cfg, cfar_cfg)
     return _chain_kernel("chain_gos", "rsp_chain_gos",
                          gos_registers(rt, cfar_cfg, n), xp, fft_cfg,
-                         _twiddles(n, xp.device))
+                         _row_twiddles(n, xp.device))
 
 
 def _full_size(rt: RuntimeConfig, fft_cfg: FftConfig) -> bool:

@@ -13,8 +13,11 @@
   muxed by the algorithm register. Replaces
   ``int_chain_pallas.py::fused_chain_int_gos`` (:552, ``pallas_call`` :622);
   CUDA source ``csrc/chain_int_gos.cu`` with the selection of
-  ``csrc/gos_cfar.cuh``, frames up to ``2**MAX_LOG2N`` one a block, longer
-  ones the split route.
+  ``csrc/gos_cfar.cuh``, on the same three routes as F: frames of
+  ``ROW_SIZES`` on F's row plan (entry ``rsp_chain_int_gos_rows``, the
+  selection over the block's frames of ``csrc/gos_rows.cuh``), frames up to
+  ``2**MAX_LOG2N`` one a block (entry ``rsp_chain_int_gos``), longer ones
+  the split route.
 * The split route of F and G for frames of N > ``2**MAX_LOG2N`` (CUDA source
   ``csrc/int_split.cu``, entry ``rsp_int_split``, counted as
   ``chain_int_split`` and ``chain_int_gos_split``): head launches run the
@@ -63,7 +66,7 @@ MAX_LOG2N = 14    # the frame-per-block kernels' bound: ~195 KiB of shared
                   # longer frames take the split route (csrc/int_split.cu)
 MAX_LOG2N_SPLIT = 30    # the split route's bound (int32 cell indices)
 OPS_CELLS = 512 * 1024  # cells a call of the plain versions (window stacks)
-ROW_SIZES = FUSABLE_SIZES   # Kernel F's row-plan route (csrc/chain_int.cu)
+ROW_SIZES = FUSABLE_SIZES   # the row-plan route of Kernels F and G
 
 
 class IntRegs(ctypes.Structure):
@@ -244,8 +247,9 @@ def chain_int_gos(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
     if n > 1 << MAX_LOG2N:
         return _split_kernel("chain_int_gos_split", xp,
                              int_registers(rt, cfar_cfg, n), fft_cfg)
-    return _int_kernel("chain_int_gos", "rsp_chain_int_gos", xp, rt, fft_cfg,
-                       cfar_cfg)
+    symbol = ("rsp_chain_int_gos_rows" if n in ROW_SIZES
+              else "rsp_chain_int_gos")
+    return _int_kernel("chain_int_gos", symbol, xp, rt, fft_cfg, cfar_cfg)
 
 
 def int_ops_chain(x: CLike, rt: RuntimeConfig, cfg: ChainConfig) -> CfarOutput:

@@ -270,6 +270,16 @@ def _int_tail(mag, r):
     lag, lead = _side_sums(row.astype(np.uint32), n, w, r.guard)
     s_lag = lag.astype(np.int32).astype(np.int64) >> r.div_sum
     s_lead = lead.astype(np.int32).astype(np.int64) >> r.div_sum
+    return _int_thr_peaks(row, s_lag, s_lead, r)
+
+
+def _int_thr_peaks(row, s_lag, s_lead, r):
+    """``rsp_int_thr_peak`` over frames of the padded magnitude rows ``row``
+    [F, PAD + n + PAD] (int64 holding int32) from the side statistics
+    ``s_lag``, ``s_lead`` [F, n]: the mode, the wrapping threshold, peak
+    grouping, zeros at and beyond n_active."""
+    n = s_lag.shape[-1]
+    hi = r.n_active
     noise = (np.maximum(s_lag, s_lead) if r.cfar_mode == 1
              else np.minimum(s_lag, s_lead) if r.cfar_mode == 2
              else _w32(s_lag + s_lead) >> 1)
@@ -380,6 +390,17 @@ def _chain_ca(x, n, r, scale, h_cells=None):
     scattered to its natural bin (``rsp_row_bin``), and the run-sum tail;
     Kernel I's with ``h_cells``, H's [2, n] planes in the cells' order, which
     multiply each scaled cell before its magnitude."""
+    row = _mag_row(x, n, r, scale, h_cells)
+    lag, lead = _side_sums(row, n, 1 << r.log2w, r.guard)
+    inv = np.float32(2.0 ** -r.div_sum)
+    return _thr_peaks(row, _combine(r.cfar_mode, lag * inv, lead * inv), r)
+
+
+def _mag_row(x, n, r, scale, h_cells=None):
+    """The front of Kernels A, D and I: the forward passes, the magnitude of
+    each cell (after H's product with ``h_cells``), scattered to its natural
+    bin (``rsp_row_bin``) of the padded rows [F, PAD + n + PAD], zero
+    outside the active range."""
     spec = _forward(x, n) * np.float32(scale)
     sr, si = spec.real, spec.imag
     if h_cells is not None:
@@ -390,12 +411,21 @@ def _chain_ca(x, n, r, scale, h_cells=None):
     active = (k >= r.active_lo) & (k < r.active_hi)
     row = np.zeros(x.shape[:-1] + (PAD + n + PAD,), np.float32)
     row[:, PAD + k] = np.where(active, mag_cells, np.float32(0))
-    lag, lead = _side_sums(row, n, 1 << r.log2w, r.guard)
-    inv = np.float32(2.0 ** -r.div_sum)
-    s_lag, s_lead = lag * inv, lead * inv
-    noise = (np.maximum(s_lag, s_lead) if r.cfar_mode == 1
-             else np.minimum(s_lag, s_lead) if r.cfar_mode == 2
-             else np.float32(0.5) * (s_lag + s_lead))
+    return row
+
+
+def _combine(mode, s_lag, s_lead):
+    """``rsp_combine``: GO, SO, or the mean."""
+    return (np.maximum(s_lag, s_lead) if mode == 1
+            else np.minimum(s_lag, s_lead) if mode == 2
+            else np.float32(0.5) * (s_lag + s_lead))
+
+
+def _thr_peaks(row, noise, r):
+    """The float tails' thresholds and peaks over frames of the padded
+    magnitude rows ``row`` [F, PAD + n + PAD] from each cell's ``noise``
+    [F, n]: the scaler, peak grouping, zeros outside the active range."""
+    n = noise.shape[-1]
     scaler = np.float32(r.scaler)
     thr = noise * scaler if r.log_or_linear == 1 else noise + scaler
     i = np.arange(n)

@@ -735,6 +735,80 @@ def test_chain_int_gos_is_exact_at_selection_edges(dev, n, case):
                                                     cfg.cfar))
 
 
+# ---- Kernels D and G on the row plan: part-filled blocks ----
+
+# frames a block of the row plan (csrc/row_fft.cuh RspRowPlan::kRows)
+ROW_FRAMES = {256: 16, 512: 8, 1024: 4}
+PART_FRAMES = ["1", "3", "rows + 1", "headline"]
+
+
+def _part_count(n, frames):
+    """1, 3 or kRows + 1 frames, or the headline's 64 x 256 x 1024 samples
+    as frames of n."""
+    return {"1": 1, "3": 3, "rows + 1": ROW_FRAMES[n] + 1,
+            "headline": 64 * 256 * 1024 // n}[frames]
+
+
+def _by_frames(fn, x, step=2048):
+    """``fn`` over chunks of ``step`` frames of ``x``, outputs concatenated:
+    the plain GOS version's window stacks at the headline."""
+    outs = [fn(rsp.C(x.re[k:k + step], x.im[k:k + step]))
+            for k in range(0, x.shape[0], step)]
+    return rsp.CfarOutput(threshold=torch.cat([o.threshold for o in outs]),
+                          peaks=torch.cat([o.peaks for o in outs]))
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024])
+@pytest.mark.parametrize("frames", PART_FRAMES)
+@pytest.mark.parametrize("regs", [
+    dict(), dict(cfar_mode=3, sub_window_size=8),
+    dict(cfar_algorithm=0, cfar_mode=1, peak_grouping=1)],
+    ids=["GOS", "CASH sub_w 8", "CA sums"])
+def test_chain_gos_row_plan_over_part_filled_blocks(dev, n, frames, regs):
+    """Kernel D at frame counts that leave the last block of the row plan
+    part filled (a served request's one frame, 3, kRows + 1) and at the
+    headline: the dead frames' threads take part in the selection's
+    barriers and write nothing."""
+    cfg = _gos_cfg(n)
+    count = _part_count(n, frames)
+    x = _iq((count + 1, n), dev, seed=count)
+    sub = rsp.C(x.re[:count], x.im[:count])
+    rt = rsp.RuntimeConfig.make(**{"fft_size": n, **GOS, **regs})
+    before = _build.LAUNCHES["chain_gos"]
+    got = kchain.chain_gos(sub, rt, cfg.fft, cfg.cfar)
+    assert _build.LAUNCHES["chain_gos"] == before + 1
+    assert got.threshold.shape == (count, n)
+    _assert_close(got, _by_frames(lambda c: kchain.chain_gos_reference(
+        c, rt, cfg.fft, cfg.cfar), sub))
+    assert _build.BUILDS == 1
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024])
+@pytest.mark.parametrize("frames", PART_FRAMES)
+@pytest.mark.parametrize("regs", [
+    dict(), dict(cfar_algorithm=0, cfar_mode=1, mag_mode=1, div_sum=0)],
+    ids=["GOS", "CA sums"])
+def test_chain_int_gos_row_plan_over_part_filled_blocks(dev, n, frames, regs,
+                                                        monkeypatch):
+    """Kernel G's frames of 256-1024 take the row-plan entry, exact at part
+    filled blocks and at the headline."""
+    symbols = []
+    kernel = kint._int_kernel
+
+    def record(name, symbol, *args):
+        symbols.append(symbol)
+        return kernel(name, symbol, *args)
+
+    monkeypatch.setattr(kint, "_int_kernel", record)
+    cfg = _gos_cfg(n)
+    count = _part_count(n, frames)
+    x = _int_iq((count, n), dev, seed=count, amp=30000)
+    rt = rsp.RuntimeConfig.make(**{"fft_size": n, **GOS, **regs})
+    got = kint.chain_int_gos(x, rt, cfg.fft, cfg.cfar)
+    assert symbols == ["rsp_chain_int_gos_rows"]
+    _assert_exact(got, kint.chain_int_gos_reference(x, rt, cfg.fft, cfg.cfar))
+    assert _build.BUILDS == 1
+
 def _bit_true(cfar):
     return rsp.ChainConfig(cfar=cfar, fixed_point=rsp.FixedPointConfig(
         enabled=True, width=16, bin_point=0, bit_true=True))
