@@ -91,7 +91,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    GOSCA elaboration's CA registers, the range-Doppler map, the given
    magnitude of the 1 x 4 mesh) and frame sizes, Kernel I at its frame
    sizes, Kernel E at its two wire points, Kernels A, D (also under CASH
-   registers), F, G and H at the headline, Kernels C, D and G at the
+   registers), F, G and H (``rd_ca`` and ``rd_map``) at the headline,
+   Kernel J at the bench's 2-D registers and at the Doppler reach 80,
+   Kernels C, D and G at the
    windows 8, 32 and 64, each also with the algorithm register at 0, where
    the CA sums take the rank selection's place (the difference is the
    selection's own time), and the split route of F and G at each of its
@@ -101,12 +103,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    profile of its head, body and tail launches at 512 x 32768;
    times Kernel F's row plan beside its frame-per-block kernel on the same
    frames of 1024 (the bench's stage flags, and seven expanding stages);
-   times, as a yardstick for Kernel H's range rows and used nowhere in the
-   port, ``torch.fft.fft`` + ``torch.fft.ifft`` over the same 16,384 rows
-   of 1024; prints the registers, spills and stack frames of A's, D's,
-   E's, F's, G's and I's row kernels, the split route's kernels, B, C,
-   G's frame-per-block kernel and the range-row kernels from the
-   ``-Xptxas -v`` report; builds A's, D's, E's, F's, G's, I's and B's
+   times, as yardsticks used nowhere in the port, ``torch.fft.fft`` +
+   ``torch.fft.ifft`` over the same 16,384 rows of 1024 (for Kernel H's
+   range rows) and ``torch.fft.fft`` over the pulses of the same planes
+   (for the Doppler launch); prints each range-Doppler launch's byte bound;
+   prints the registers, spills and stack frames of A's, D's, E's, F's,
+   G's and I's row kernels, the split route's kernels, B, C, G's
+   frame-per-block kernel and the range-Doppler kernels (Doppler columns,
+   range rows, 2-D detector) from the ``-Xptxas -v`` report; builds A's, D's, E's, F's, G's, I's and B's
    seven sources once more at 1, 2, 3 and 4 blocks an SM
    (``-DRSP_ROWS_BLOCKS``, ``-DRSP_E_BLOCKS``, ``-DRSP_B_BLOCKS``), each
    build checked against the plain versions (I at N = 4096), with its
@@ -117,12 +121,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    kernel path (``rd_ca``), its map
    (``rd_map``) and plain paths, the 2-D detector (``rd_2d``) and the
    range-sharded tail: device time per call of each stage and of the
-   busiest device kernels (for the range-Doppler kernels, the Doppler and
-   range-row launches apart), and the device memory a call allocates beyond
-   its inputs.
+   busiest device kernels, and the device memory a call allocates beyond
+   its inputs; and the range-Doppler kernel paths' launch split
+   (``launch_split``: the Doppler, range-row and 2-D detector launches
+   apart).
 
 ``python3 chip_smoke.py --compare`` only builds the kernels and prints
-``tail_times`` with the split route's per-launch profile: a copy of the
+``tail_times`` with the split route's per-launch profile and the launch
+split of ``rd_ca``, ``rd_map`` and ``rd_2d`` (both 2-D points): a copy of the
 script in another checkout of the port (an earlier commit), run in the same
 call, times that checkout's kernels on the same card.
 
@@ -553,6 +559,35 @@ def profile(fn, label: str, stages, calls: int = 20, top: int = 5) -> None:
               f"{e.count // calls} a call")
 
 
+# the launches of the range-Doppler kernels, by their kernels' names
+RD_LAUNCHES = (("Doppler", "rsp_rd_doppler_kernel"),
+               ("range rows", "rsp_rd_rows_kernel"),
+               ("2-D detector", "rsp_cfar2d_kernel"))
+
+
+def launch_split(fn, label: str, calls: int = 20) -> dict:
+    """Device ms a call of each of the range-Doppler launches (RD_LAUNCHES)
+    over ``calls`` calls of ``fn`` under ``torch.profiler``; printed as one
+    line and returned by launch name."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    fn()
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    split = {name: sum(e.self_device_time_total for e in rows
+                       if kernel in e.key) / calls / 1e3
+             for name, kernel in RD_LAUNCHES}
+    print(f"launch split [{label}]: " + ", ".join(
+        f"{name} {ms:.4f} ms" for name, ms in split.items() if ms > 0))
+    return split
+
+
 def b_frame_sizes(dev, samples: int) -> dict:
     """Seeded spectra for Kernel B at each of ``B_SIZES``: samples // N
     frames of N."""
@@ -619,15 +654,17 @@ def sel_label(name: str, w: int, g: int, alg: int) -> str:
 def tail_times(dev, profiles: bool = False) -> dict:
     """Kernel B at its points and frame sizes and Kernel I at its frame
     sizes, with Kernel A at the headline beside them as a yardstick, Kernel
-    E at the wire points, Kernels D, F, G and H at the headline (D under GOS
-    and CASH registers), Kernels C, D and G at each of SEL_WINDOWS with the
-    algorithm register at 1 and at 0, and the split route of F and G at
-    SPLIT_SHAPES; each on seeded inputs of SHAPE's samples: (median ms by CUDA events, on the card alone (``device_ms``),
+    E at the wire points, Kernels D, F, G and H (``rd_ca``, ``rd_map``) at
+    the headline (D under GOS and CASH registers), Kernel J at the bench's
+    2-D registers and at the Doppler reach 80, Kernels C, D and G at each of
+    SEL_WINDOWS with the algorithm register at 1 and at 0, and the split
+    route of F and G at SPLIT_SHAPES; each on seeded inputs of SHAPE's
+    samples: (median ms by CUDA events, on the card alone (``device_ms``),
     host ms a call). Only entry points that every version of the port since
     its sharded chains has are called (the split route's since it came),
     so ``--compare`` runs it on an earlier checkout too. With ``profiles``
     it then prints the per-launch profile (head, body, tail) of the split
-    route at the first of SPLIT_SHAPES."""
+    route at the first of SPLIT_SHAPES and the launch split of H and J."""
     import numpy as np
     import torch
 
@@ -660,6 +697,9 @@ def tail_times(dev, profiles: bool = False) -> dict:
                                                fft_size=SHAPE[-1]),
         doppler=rsp.DopplerConfig(num_pulses=SHAPE[1]))
     rd_map = krd.fused_rd_chain(x, rt, taps, rd_cfg, emit="map")
+    cfg2d, far2d = (rsp.Cfar2dConfig(**c) for c in (RD2_CFG, RD2_FAR_CFG))
+    rt2d = rsp.Cfar2dRuntime.make(**RD2_REGS)
+    rt2d_far = rsp.Cfar2dRuntime.make(**{**RD2_REGS, **RD2_FAR_SWEEP[0][2]})
     xq = rsp.C(*(torch.round(torch.clamp(v * 250, -32767, 32767))
                  for v in (x.re, x.im)))
     xi = rsp.C(xq.re.to(torch.int32), xq.im.to(torch.int32))
@@ -684,6 +724,13 @@ def tail_times(dev, profiles: bool = False) -> dict:
             kchain.wire_ca(words, r, cfg.fft, cfg.cfar),
         "rd_ca at 64x256x1024, headline":
             lambda: krd.fused_rd_chain(x, rt, taps, rd_cfg),
+        "rd_map at 64x256x1024, headline":
+            lambda: krd.fused_rd_chain(x, rt, taps, rd_cfg, emit="map"),
+        "rd_2d at 64x256x1024, bench 2-D registers":
+            lambda: krd.fused_rd_2d_chain(x, rt, rt2d, taps, rd_cfg, cfg2d),
+        "rd_2d at 64x256x1024, Doppler reach 80":
+            lambda: krd.fused_rd_2d_chain(x, rt, rt2d_far, taps, rd_cfg,
+                                          far2d),
         "chain_int at 64x256x1024, headline":
             lambda: kint.chain_int(xi, rt, icfg.fft, icfg.cfar),
         "chain_int_gos at 64x256x1024, GOS registers":
@@ -745,6 +792,11 @@ def tail_times(dev, profiles: bool = False) -> dict:
     if profiles:
         for label in split0:
             profile(points[label], label, ())
+        for label in ("rd_ca at 64x256x1024, headline",
+                      "rd_map at 64x256x1024, headline",
+                      "rd_2d at 64x256x1024, bench 2-D registers",
+                      "rd_2d at 64x256x1024, Doppler reach 80"):
+            launch_split(points[label], label)
     return times
 
 
@@ -904,8 +956,8 @@ def print_tail_times(times: dict, card: str) -> None:
 
 def compare_mode(card: str) -> int:
     """``--compare``: build the kernels of the checkout this script lies in
-    and print ``tail_times`` and the split route's per-launch profile,
-    nothing else; run from two checkouts in one call (a copy of this script
+    and print ``tail_times`` with the split route's and the range-Doppler
+    kernels' per-launch profiles, nothing else; run from two checkouts in one call (a copy of this script
     in each) it compares their kernels on one card."""
     import torch
 
@@ -3133,7 +3185,9 @@ def main() -> int:
                                  "rsp_mag_gos_cfar_kernel",
                                  "rsp_chain_int_gos_rows_kernel",
                                  "rsp_chain_int_gos_kernel",
-                                 "rsp_rd_rows_kernel")).items():
+                                 "rsp_rd_rows_kernel",
+                                 "rsp_rd_doppler_kernel",
+                                 "rsp_cfar2d_kernel")).items():
         print(f"ptxas -v {name}: {regs} registers, {st} B spill stores, "
               f"{ld} B spill loads, {stack} B stack frame")
 
@@ -3146,6 +3200,13 @@ def main() -> int:
     fft_pair_ms = time_ms(lambda: torch.fft.ifft(torch.fft.fft(rows)))
     print(f"yardstick: torch.fft.fft + torch.fft.ifft over {rows.shape[0]} "
           f"rows of {SHAPE[-1]} (complex64): {fft_pair_ms:.4f} ms; card "
+          f"{card}")
+    # ---- a yardstick for the Doppler launch: one FFT over the pulses of the
+    # same planes (never on the path) ----
+    cpis = torch.complex(x.re, x.im)
+    dop_ms = time_ms(lambda: torch.fft.fft(cpis, dim=-2))
+    print(f"yardstick: torch.fft.fft over the {SHAPE[1]} pulses of "
+          f"{'x'.join(map(str, SHAPE))} (complex64): {dop_ms:.4f} ms; card "
           f"{card}")
 
     # ---- bounds: bytes over the memory rate, least work over the rates ----
@@ -3177,6 +3238,14 @@ def main() -> int:
         PC_SHAPE[-1].bit_length() - 1)
     work.update({"rd_ca": (13, rd_ops, 0, 0), "rd_map": (16, rd_ops, 0, 0),
                  "pc_ca": (13, pc_ops, 0, 0), "rd_2d": (13, rd_ops, 0, 0)})
+    # the range-Doppler launches on their own: the Doppler launch 8 bytes a
+    # sample in and 8 out; the range rows 8 in and 5 (CA), 8 (map) or 4
+    # (magnitude) out; J's detector the magnitude in, 4 + 1 out
+    for name, per in (("Doppler launch", 16), ("range rows, CA", 13),
+                      ("range rows, map", 16), ("range rows, magnitude", 12),
+                      ("2-D detector", 9)):
+        print(f"bound {name}: {per} B/sample -> "
+              f"{per * samples / HBM_BYTES_PER_S * 1e3:.4f} ms")
     # Kernels K and L move bytes only (a dozen flops a cell): each shard
     # reads its neighbours' halo cells and writes both halos (K); reads its
     # block and the halo cells and writes the extended row (L)
@@ -3251,6 +3320,8 @@ def main() -> int:
     profile(lambda: rd_plain(x, rt), "range-Doppler plain path",
             rd_plain.stage_names)
     profile(lambda: run2d(x, rt, rt2d), "2-D detector kernel path", ())
+    launch_split(lambda: run2d(x, rt, rt2d), "2-D detector kernel path")
+    launch_split(lambda: rd_chain(x, rt), "range-Doppler kernel path")
     profile(lambda: tail14(placed, rt), "range-sharded tail 1x4, placed", ())
     profile(lambda: khalo.halo_exchange(re_row, 128), "halo_exchange 1x4", ())
 

@@ -4,14 +4,16 @@
 // Replaces rsp_chains_tpu/kernels/rd_pallas.py::fused_rd_2d_chain (:442,
 // pallas_call :515; body `_rd_kernel_2d` :419 = `_rd_front` +
 // `_cfar2d_into`). Three launches: the two of the range-Doppler front
-// (rd_front.cuh), the second writing the magnitude over the Doppler output
-// in place, then the 2-D CFAR of cfar_2d.cuh over tiles of that map.
+// (rd_front.cuh: the register column plan over the pulses, then Kernel H's
+// register row plan along range), the second writing the magnitude over the
+// Doppler output in place, then the run-sum 2-D CFAR of cfar_2d.cuh over
+// 32 x 128 tiles of that map.
 //
 // Bound on the H100: device memory, 13 bytes a sample (8 in, 4 + 1 out) for
 // the function. The split adds the 16-byte round trip of the Doppler output
-// and a 4-byte magnitude map written and read again (about 28 bytes a
-// sample on top of the 13); the TPU kernel kept both in VMEM. The range rows
-// are Kernel H's register-resident FFT pair (rd_front.cuh).
+// and a 4-byte magnitude map written and read again (about 24 bytes a
+// sample on top of the 13: 37 bytes a sample for the three launches, 16 +
+// 12 + 9); the TPU kernel kept both in VMEM.
 #include <cuda_runtime.h>
 
 #include "cfar_2d.cuh"
@@ -37,8 +39,13 @@ extern "C" int rsp_rd_2d(const float* re, const float* im, float* thr,
                                          front);
   if (rc != 0) return rc;
   const int p = 1 << log2p, n = 1 << log2n;
+  const int a_d = regs.g_d + regs.w_d;
+  const size_t smem = rsp_c2d_smem(regs.g_r + regs.w_r, a_d);
+  const auto kernel = rsp_c2d_one(a_d) ? rsp_cfar2d_kernel<true>
+                                       : rsp_cfar2d_kernel<false>;
+  const cudaError_t e = rsp_opt_in(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid(batch * (n / RSP_C2D_TR), (p + RSP_C2D_TD - 1) / RSP_C2D_TD);
-  rsp_cfar2d_kernel<<<grid, RSP_THREADS, 0, stream>>>(yre, thr, peaks, p, n,
-                                                      regs);
+  kernel<<<grid, RSP_C2D_THREADS, smem, stream>>>(yre, thr, peaks, p, n, regs);
   return (int)cudaGetLastError();
 }

@@ -14,24 +14,27 @@
 // and the one along pulses are 5 N log2 N + 5 P log2 P flops a row pair,
 // about 9 flops a byte at P = 256, N = 1024, below the card's ~20 fp32 flops
 // a byte. The split front adds a 16-byte round trip of the Doppler output
-// (8 written, 8 read) that the TPU kernel does not pay. The range-row
-// launch keeps its FFT pair in registers, radix-16 passes with two to four
-// barriers a row instead of twenty radix-2 stages, and sums the CA windows
-// of 16 contiguous cells a thread at once (rd_front.cuh); the Doppler launch
-// and the round trip are what is left above the byte bound, and go together
-// once a channel's CPI stays on chip.
+// (8 written, 8 read) that the TPU kernel does not pay. The Doppler launch
+// keeps 16 pulses of a range column a thread in registers, radix-16 passes
+// with one transpose through shared memory between them (two at P = 512),
+// and stores each bin straight to its row; the range-row launch keeps its
+// FFT pair in registers, radix-16 passes with two to four barriers a row
+// instead of twenty radix-2 stages, and sums the CA windows of 16
+// contiguous cells a thread at once (rd_front.cuh). The round trip is what
+// is left above the byte bound, and goes once a channel's CPI stays on chip.
 #include <cuda_runtime.h>
 
 #include "rd_front.cuh"
 
 // re, im: float32 [batch, 2^log2p, 2^log2n] (one CPI per channel); thr:
 // float32 and peaks: uint8 of that shape; yre, yim: float32 scratch of that
-// shape; tw_p: float32 [2^(log2p-1), 2] (cos, sin); tw_n: the range passes'
-// twiddles, float32 [2^log2n + 16 * 2^(log2n-8), 2] (kernels/rd.py,
-// `row_twiddles`); win: float32 [2^log2p]; h: float32 [2, 2^log2n], H in the
-// forward pass's digit-reversed order (`h_rows`); all contiguous on the
-// current device, 3 <= log2p <= 9, 8 <= log2n <= 10. Launches on `stream`;
-// returns the first CUDA error.
+// shape; tw_p: the Doppler passes' twiddles, float32 [2^log2p + 16 *
+// (2^log2p / 256), 2] (cos, sin; `row_twiddles(P)`, empty at P = 8); tw_n: the
+// range passes' twiddles, float32 [2^log2n + 16 * 2^(log2n-8), 2]
+// (kernels/chain.py, `row_twiddles`); win: float32 [2^log2p]; h: float32
+// [2, 2^log2n], H in the forward pass's digit-reversed order (`h_rows`); all
+// contiguous on the current device, 3 <= log2p <= 9, 8 <= log2n <= 10.
+// Launches on `stream`; returns the first CUDA error.
 extern "C" int rsp_rd_ca(const float* re, const float* im, float* thr,
                          uint8_t* peaks, int batch, cudaStream_t stream,
                          float* yre, float* yim, const float* tw_p,

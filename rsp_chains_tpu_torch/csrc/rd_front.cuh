@@ -13,16 +13,23 @@
 // different axes, so they commute: the Doppler transform goes first, and the
 // range launch can then end in the magnitude and the CFAR.
 //
-// * rsp_rd_doppler_kernel, one block per channel and RSP_RD_COLS range
-//   columns: each pulse's 32 columns are one coalesced 128-byte read per
-//   plane. The window multiplies the pulses, a radix-2 DIT over P runs in
-//   shared memory (P x 32 x 8 bytes, 128 KB at P = 512) with the 32 columns
-//   of a butterfly in the 32 lanes of a warp, and the store writes row k as
-//   the centred bin k - P/2 under fftshift, the DIV_N / SQRT_N scale folded.
+// * rsp_rd_doppler_kernel, the column plan (RspColPlan) over P = 8 ... 512
+//   pulses: each thread holds 16 pulses (8 at P = 8) of one range column in
+//   registers, and the lanes of a warp are 32 consecutive columns, so every
+//   pulse's read and write is one coalesced 128-byte line per plane. The
+//   window multiplies on the load. The transform runs as the row plan's
+//   passes (row_fft.cuh: `rsp_dft`, `rsp_twiddle`, the float64-rounded pass
+//   twiddles of kernels/chain.py `row_twiddles` at n = P) over the radices
+//   8; 16; 16 x 2; 16 x 4; 16 x 8; 16 x 16; 16 x 16 x 2, with only a
+//   transpose through shared memory between passes (P / 16 warps a column
+//   strip, [P][32] floats a plane, no bank conflicts): no barrier at P <= 16,
+//   one up to 256, two at 512. The output is digit-reversed in the
+//   registers, so each slot is stored straight to its bin's row (fftshift
+//   and the DIV_N / SQRT_N scale folded into that store), still coalesced
+//   across the lanes: no bit or digit reversal anywhere.
 //   Bound: device memory, 16 bytes a sample in and out (~0.08 ms at
-//   64 x 256 x 1024); it runs at about three times that, its log2 P stages
-//   each ending in a barrier. It and the scratch round trip go together
-//   once a channel's CPI stays on chip (ROADMAP queue 2).
+//   64 x 256 x 1024). The scratch round trip goes once a channel's CPI
+//   stays on chip (ROADMAP queue 2).
 // * rsp_rd_rows_kernel, the row plan of row_fft.cuh (N / 16 threads a
 //   Doppler row of N = 256, 512, 1024, 16 cells a thread): the forward
 //   transform (`rsp_row_forward`) leaves the spectrum digit-reversed; it is
@@ -46,63 +53,116 @@
 
 #include "row_fft.cuh"
 
-#define RSP_RD_COLS 32
 #define RSP_RD_OUT_CFAR 0
 #define RSP_RD_OUT_MAP 1
 #define RSP_RD_OUT_MAG 2
 
-// Launch 1: the windowed Doppler DFT of RSP_RD_COLS range columns of one
-// channel. Grid (channels, N / RSP_RD_COLS). Static, as every kernel of
-// this header: each source that includes it gets its own copy.
-static __global__ void __launch_bounds__(RSP_THREADS)
+// ---- Launch 1: the Doppler columns ----
+
+// The column plan of kP pulses: kT threads a column (one warp each, the
+// lanes 32 consecutive columns), kL pulses a thread; pass 1 is radix kL at
+// stride kT, then (kT > 1) radix 16 at stride kM2 inside blocks of kT cells
+// (kM2 > 1: P = 512 only) and radix kLast over contiguous groups: the row
+// plan's passes (row_fft.cuh) with the cells down a column. kStrips strips
+// of 32 columns a block, kThreads threads, at most 64 registers a thread
+// (1024 threads an SM).
+template <int kP>
+struct RspColPlan {
+  static_assert(kP >= 8 && kP <= 512 && (kP & (kP - 1)) == 0,
+                "the column plan takes P = 8 ... 512");
+  static constexpr int kT = kP >= 16 ? kP / 16 : 1;
+  static constexpr int kL = kP >= 16 ? 16 : kP;
+  static constexpr int kM2 = kT > 16 ? kT / 16 : 1;
+  static constexpr int kLast = kM2 > 1 ? kM2 : kT;  // the last pass's radix
+  static constexpr int kStrips = kT >= 8 ? 1 : 8 / kT;
+  static constexpr int kThreads = 32 * kT * kStrips;
+  static constexpr int kBlocks = 1024 / kThreads;
+  static constexpr int kCols = 32 * kStrips;
+  // floats of shared memory: two [kP][32] planes a strip, none at kT = 1
+  static constexpr int kSmem = kT > 1 ? kStrips * 2 * kP * 32 : 0;
+};
+
+// Launch 1: the windowed Doppler DFT of the range columns of one channel,
+// 32 columns a strip, kStrips strips a block. Grid (channels, N / kCols).
+// tw: `row_twiddles(P)` (W_P^(m k) at [k kT + m], then at P = 512 W_32^(m k)
+// at [P + 2 k + m]); win: [P]. Static, as every kernel of this header: each
+// source that includes it gets its own copy.
+template <int kP>
+static __global__ void __launch_bounds__(RspColPlan<kP>::kThreads,
+                                         RspColPlan<kP>::kBlocks)
 rsp_rd_doppler_kernel(const float* __restrict__ re,
                       const float* __restrict__ im,
-                      const float2* __restrict__ twp,
+                      const float2* __restrict__ tw,
                       const float* __restrict__ win, float* __restrict__ yre,
-                      float* __restrict__ yim, int log2p, int log2n,
-                      float scale, int fft_shift) {
+                      float* __restrict__ yim, int n, float scale,
+                      int fft_shift) {
+  using P = RspColPlan<kP>;
+  constexpr int T = P::kT, L = P::kL, M2 = P::kM2;
   extern __shared__ float smem[];
-  const int p = 1 << log2p;
-  const int n = 1 << log2n;
-  float* xr = smem;                    // [p][RSP_RD_COLS], bit-reversed rows
-  float* xi = smem + p * RSP_RD_COLS;
-  const size_t base = (size_t)blockIdx.x * p * n + blockIdx.y * RSP_RD_COLS;
-
-  for (int idx = threadIdx.x; idx < p * RSP_RD_COLS; idx += blockDim.x) {
-    const int q = idx / RSP_RD_COLS, c = idx % RSP_RD_COLS;
-    const int j = __brev(q) >> (32 - log2p);
-    const size_t g = base + (size_t)q * n + c;
-    const float wq = win[q];
-    xr[j * RSP_RD_COLS + c] = re[g] * wq;
-    xi[j * RSP_RD_COLS + c] = im[g] * wq;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m = warp % T, strip = warp / T;
+  const size_t col = (size_t)blockIdx.x * kP * n +
+                     (size_t)blockIdx.y * P::kCols + strip * 32 + lane;
+  float xr[16], xi[16];
+  // pass 1: pulses m + T j, windowed on the load
+  const float* pr = re + col + (size_t)m * n;
+  const float* pi = im + col + (size_t)m * n;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const float w = __ldg(win + m + T * j);
+    xr[j] = __ldg(pr + (size_t)T * j * n) * w;
+    xi[j] = __ldg(pi + (size_t)T * j * n) * w;
   }
-  __syncthreads();
-  for (int s = 1; s <= log2p; ++s) {
-    const int half = 1 << (s - 1);
-    for (int idx = threadIdx.x; idx < (p / 2) * RSP_RD_COLS;
-         idx += blockDim.x) {
-      const int b = idx / RSP_RD_COLS, c = idx % RSP_RD_COLS;
-      const int pos = b & (half - 1);
-      const int i0 = (((b >> (s - 1)) << s) + pos) * RSP_RD_COLS + c;
-      const int i1 = i0 + half * RSP_RD_COLS;
-      const float2 w = twp[pos << (log2p - s)];
-      const float br = xr[i1], bi = xi[i1];
-      const float tr = fmaf(w.x, br, -w.y * bi);
-      const float ti = fmaf(w.x, bi, w.y * br);
-      const float ar = xr[i0], ai = xi[i0];
-      xr[i0] = ar + tr;
-      xi[i0] = ai + ti;
-      xr[i1] = ar - tr;
-      xi[i1] = ai - ti;
+  rsp_dft<L, false>(xr, xi);
+  if constexpr (T > 1) {
+    // slot k: cell m + T k; a strip's planes [kP][32], a cell a row
+    float* sr = smem + strip * 2 * kP * 32 + lane;
+    float* si = sr + kP * 32;
+    rsp_twiddle<false>(xr, xi, tw + m, T);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      sr[(m + T * k) * 32] = xr[k];
+      si[(m + T * k) * 32] = xi[k];
     }
     __syncthreads();
+    if constexpr (M2 > 1) {
+      // pass 2: radix 16 at stride M2 inside a block of T cells
+      const int m2 = m % M2, b2 = T * (m / M2) + m2;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        xr[k] = sr[(b2 + M2 * k) * 32];
+        xi[k] = si[(b2 + M2 * k) * 32];
+      }
+      rsp_dft<16, false>(xr, xi);
+      rsp_twiddle<false>(xr, xi, tw + kP + m2, M2);
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        sr[(b2 + M2 * k) * 32] = xr[k];
+        si[(b2 + M2 * k) * 32] = xi[k];
+      }
+      __syncthreads();
+    }
+    // the last pass: radix kLast over the contiguous groups of 16 m ..
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      xr[k] = sr[(16 * m + k) * 32];
+      xi[k] = si[(16 * m + k) * 32];
+    }
+#pragma unroll
+    for (int j = 0; j < 16; j += P::kLast)
+      rsp_dft<P::kLast, false>(xr + j, xi + j);
   }
-  for (int idx = threadIdx.x; idx < p * RSP_RD_COLS; idx += blockDim.x) {
-    const int k = idx / RSP_RD_COLS, c = idx % RSP_RD_COLS;
-    const int src = fft_shift ? (k + p / 2) & (p - 1) : k;
-    const size_t g = base + (size_t)k * n + c;
-    yre[g] = xr[src * RSP_RD_COLS + c] * scale;
-    yim[g] = xi[src * RSP_RD_COLS + c] * scale;
+  // slot j: cell p = 16 m + j (j at T = 1), which holds bin
+  // p / T + 16 (p % T / M2) + 256 (p % M2); stored at its row, shifted
+  const int p0 = T > 1 ? 16 * m : 0;
+  const int half = fft_shift ? kP / 2 : 0;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const int p = p0 + j;
+    const int bin = p / T + 16 * (p % T / M2) + 256 * (p % M2);
+    const size_t o = col + (size_t)((bin + half) & (kP - 1)) * n;
+    yre[o] = xr[j] * scale;
+    yim[o] = xi[j] * scale;
   }
 }
 
@@ -194,11 +254,25 @@ rsp_rd_rows_kernel(const float* yre, const float* yim,
   }
 }
 
-// Shared memory of the two launches.
-static inline size_t rsp_rd_doppler_smem(int log2p) {
-  return (size_t)2 * (1 << log2p) * RSP_RD_COLS * sizeof(float);
+// Launch 1 at kP pulses over rows of n cells.
+template <int kP>
+static inline cudaError_t rsp_rd_doppler(const float* re, const float* im,
+                                         float* yre, float* yim, int batch,
+                                         int n, cudaStream_t stream,
+                                         const float* tw, const float* win,
+                                         float scale, int fft_shift) {
+  using P = RspColPlan<kP>;
+  const size_t smem = (size_t)P::kSmem * sizeof(float);
+  cudaError_t e = rsp_opt_in(rsp_rd_doppler_kernel<kP>, smem);
+  if (e != cudaSuccess) return e;
+  rsp_rd_doppler_kernel<kP><<<dim3(batch, n / P::kCols), P::kThreads, smem,
+                              stream>>>(
+      re, im, reinterpret_cast<const float2*>(tw), win, yre, yim, n, scale,
+      fft_shift);
+  return cudaGetLastError();
 }
 
+// Shared memory of the range-row launch.
 template <int kN, int kOut>
 static inline size_t rsp_rd_rows_smem() {
   using P = RspRowPlan<kN>;
@@ -223,9 +297,10 @@ static inline cudaError_t rsp_rd_rows(const float* yre, const float* yim,
   return cudaGetLastError();
 }
 
-// Launch 1 into (yre, yim), then launch 2 with output kOut. tw_n: the range
-// pass twiddles; h: H in the forward output's order (kernels/rd.py). Returns
-// the first CUDA error.
+// Launch 1 into (yre, yim), then launch 2 with output kOut. tw_p: the
+// column plan's pass twiddles (`row_twiddles(P)`); tw_n: the range pass
+// twiddles; h: H in the forward output's order (kernels/rd.py). Returns the
+// first CUDA error.
 template <int kOut>
 static inline int rsp_rd_launch(const float* re, const float* im, float* yre,
                                 float* yim, float* o0, void* o1, int batch,
@@ -233,14 +308,17 @@ static inline int rsp_rd_launch(const float* re, const float* im, float* yre,
                                 const float* win, const float* tw_n,
                                 const float* h, int log2p, int log2n,
                                 float dop_scale, int fft_shift, RspCaRegs r) {
-  const size_t s1 = rsp_rd_doppler_smem(log2p);
-  cudaError_t e = rsp_opt_in(rsp_rd_doppler_kernel, s1);
-  if (e != cudaSuccess) return (int)e;
-  rsp_rd_doppler_kernel<<<dim3(batch, (1 << log2n) / RSP_RD_COLS),
-                          RSP_THREADS, s1, stream>>>(
-      re, im, reinterpret_cast<const float2*>(tw_p), win, yre, yim, log2p,
-      log2n, dop_scale, fft_shift);
-  e = cudaGetLastError();
+  using Doppler = cudaError_t (*)(const float*, const float*, float*, float*,
+                                  int, int, cudaStream_t, const float*,
+                                  const float*, float, int);
+  static constexpr Doppler kDoppler[] = {
+      rsp_rd_doppler<8>,   rsp_rd_doppler<16>,  rsp_rd_doppler<32>,
+      rsp_rd_doppler<64>,  rsp_rd_doppler<128>, rsp_rd_doppler<256>,
+      rsp_rd_doppler<512>};
+  if (log2p < 3 || log2p > 9) return (int)cudaErrorInvalidValue;
+  cudaError_t e = kDoppler[log2p - 3](re, im, yre, yim, batch, 1 << log2n,
+                                      stream, tw_p, win, dop_scale,
+                                      fft_shift);
   if (e != cudaSuccess) return (int)e;
   const int rows = batch << log2p;
   switch (log2n) {

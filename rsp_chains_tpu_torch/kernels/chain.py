@@ -62,14 +62,6 @@ ROW_RADICES = {256: (16, 16), 512: (16, 16, 2), 1024: (16, 16, 4),
                2048: (16, 16, 8), 4096: (16, 16, 16)}
 
 
-@functools.lru_cache(maxsize=None)
-def _twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """[n/2, 2] float32 (cos, sin) of exp(-2 pi i k / n), computed in float64."""
-    ang = -2.0 * np.pi * np.arange(n // 2) / n
-    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
-    return torch.from_numpy(tw).to(device)
-
-
 def row_order(n: int) -> np.ndarray:
     """The spectrum bin at each cell of the row plan's forward output: a
     decimation in frequency in place leaves bin ``R1 * k' + p // (n / R1)``
@@ -88,7 +80,9 @@ def row_twiddles(n: int) -> np.ndarray:
     """The row plan's pass twiddles as [n + 16 * (n // 256), 2] float32
     (cos, sin), computed in float64: W_n^(m k) at [k * n/16 + m] (pass 1,
     m < n/16), then W_(n/16)^(m k) at [n + k * (n // 256) + m] (pass 2,
-    m < n/256); k < 16. Pass 3's are all 1."""
+    m < n/256); k < 16. Pass 3's are all 1. The Doppler column plan
+    (``csrc/rd_front.cuh``) takes the same table at n = P = 8 ... 512: pass
+    1's only below P = 256 (none at P = 8, where one radix-8 pass runs)."""
     t, m2 = n // 16, n // 256
     k = np.arange(16)[:, None]
     w = np.concatenate([

@@ -19,13 +19,19 @@ Doppler row after it: the two are linear maps on different axes and commute
 (matched filter, then Doppler). A wrapper launches its kernel for CUDA
 tensors and uses the plain version (``*_reference``) only for CPU tensors.
 
-The row launch's FFT pair runs in passes of radix 16 (``ROW_RADICES``,
-``csrc/row_fft.cuh``, shared with Kernel A) and never reverses bits: its
-forward transform leaves the spectrum in digit-reversed order
-(``row_order``), H is multiplied in that order (``h_rows``), and the inverse
-brings the row back to natural order. The host builds H once per size,
-replica and device; the passes' twiddles (``row_twiddles``) come from
-``kernels/chain.py``.
+The Doppler launch runs the column plan: 16 pulses of a range column a
+thread (8 at P = 8), the lanes of a warp 32 consecutive columns, radix-16
+passes in registers (8; 16; 16 x 2 ... 16 x 16; 16 x 16 x 2) with a
+transpose through shared memory between them, each bin stored straight to
+its shifted row. The row launch's FFT pair runs in passes of radix 16
+(``ROW_RADICES``, ``csrc/row_fft.cuh``, shared with Kernel A) and never
+reverses bits: its forward transform leaves the spectrum in digit-reversed
+order (``row_order``), H is multiplied in that order (``h_rows``), and the
+inverse brings the row back to natural order. The host builds H once per
+size, replica and device; both plans' twiddles (``row_twiddles`` at n = N
+and at n = P) come from ``kernels/chain.py``. Kernel J's detector sums its
+windows as 16-cell runs along range and 16-row runs down the columns of
+32 x 128 tiles (``csrc/cfar_2d.cuh``).
 """
 
 from __future__ import annotations
@@ -50,9 +56,7 @@ from .cfar import (
     PAD, CaRegs, ca_registers, call_entry, check_cuda_operands, entry,
     fused_tail_kind, mag_cfar_reference, takes_plain_path,
 )
-from .chain import (
-    FUSABLE_SIZES as RD_SIZES, _permuted, _row_twiddles, _twiddles,
-)
+from .chain import FUSABLE_SIZES as RD_SIZES, _permuted, _row_twiddles
 
 class Cfar2dRegs(ctypes.Structure):
     """``RspCfar2dRegs`` of ``csrc/cfar_2d.cuh``, field for field."""
@@ -119,12 +123,13 @@ def _window(p: int, name, device: torch.device) -> torch.Tensor:
 
 def _front_args(p: int, n: int, taps, cfg: ChainConfig,
                 device: torch.device) -> tuple:
-    """The front's constants, as the C entries take them: pulse twiddles,
-    window, the range passes' twiddles, H in the row order, log2 P, log2 N,
-    the Doppler scale and the fftshift flag."""
+    """The front's constants, as the C entries take them: the Doppler
+    passes' twiddles (``row_twiddles(P)``), window, the range passes'
+    twiddles, H in the row order, log2 P, log2 N, the Doppler scale and the
+    fftshift flag."""
     mf_cfg = cfg.matched_filter or MatchedFilterConfig()
     dop_cfg = cfg.doppler or DopplerConfig()
-    return (_twiddles(p, device).data_ptr(),
+    return (_row_twiddles(p, device).data_ptr(),
             _window(p, dop_cfg.window, device).data_ptr(),
             _row_twiddles(n, device).data_ptr(),
             h_rows(taps, n, mf_cfg.normalize, device).data_ptr(),
@@ -239,6 +244,15 @@ def fused_rd_2d_chain(x: CLike, rt: RuntimeConfig, rt2: Cfar2dRuntime, taps,
                          "runs it with cfar_2d_op")
     if takes_plain_path(xp, "rd_2d"):
         return fused_rd_2d_chain_reference(xp, rt, rt2, taps, cfg, cfg2d)
+    return rd_2d_launch(xp, cfar_2d_registers(rt, rt2, cfg2d, n), taps, cfg)
+
+
+def rd_2d_launch(xp: C, regs: Cfar2dRegs, taps, cfg: ChainConfig
+                 ) -> CfarOutput:
+    """Kernel J on the CUDA CPI blocks ``xp`` [..., P, N] under the clamped
+    register struct ``regs`` (``cfar_2d_registers``; the tests also set its
+    ``active_lo``, which the registers leave at 0)."""
+    p, n = xp.shape[-2], xp.shape[-1]
     check_cuda_operands(xp.re, xp.im)
     batch = xp.re.numel() // (p * n)
     thr = torch.empty_like(xp.re)
@@ -251,6 +265,5 @@ def fused_rd_2d_chain(x: CLike, rt: RuntimeConfig, rt2: Cfar2dRuntime, taps,
                    (xp.re.data_ptr(), xp.im.data_ptr(), thr.data_ptr(),
                     pk.data_ptr(), batch),
                    (yre.data_ptr(), yim.data_ptr(),
-                    *_front_args(p, n, taps, cfg, xp.device),
-                    cfar_2d_registers(rt, rt2, cfg2d, n)))
+                    *_front_args(p, n, taps, cfg, xp.device), regs))
     return CfarOutput(threshold=thr, peaks=pk.view(torch.bool))

@@ -5,8 +5,8 @@ JAX; elsewhere every test skips. On the card:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py -q
 
 Bars: for the float kernels the bench's, max|dthr| / max|thr| < 1e-4 (the
-kernel's radix-2 fp32 FFT and direct window sums round differently from
-torch.fft and the dyadic box sums) and peak flips <= 1e-5 of the cells; for
+kernels' fp32 FFT passes and window sums round differently from torch.fft
+and the dyadic box sums) and peak flips <= 1e-5 of the cells; for
 the complex range-Doppler map max|dmap| / max|map| < 1e-4; for the wire
 kernel the bench's wire bar on the decoded fields; for the integer kernels
 equality; for the halo exchange equality, and for the extended magnitude
@@ -1031,8 +1031,10 @@ def _assert_map_close(got, want):
     assert err / scale < 1e-4, err / scale
 
 
-RD_SHAPES = [(8, 256), (64, 512), (64, 1024), (512, 1024), (512, 256),
-             (8, 1024)]
+# every pulse count of the Doppler column plan (8 ... 512) at every range
+# frame of the row plan (256, 512, 1024)
+RD_SHAPES = [(p, n) for p in (8, 16, 32, 64, 128, 256, 512)
+             for n in (256, 512, 1024)]
 
 
 @pytest.mark.parametrize("p, n", RD_SHAPES)
@@ -1183,9 +1185,9 @@ def test_rd_2d_clamps_raw_register_writes(dev):
                                                        cfg2d))
 
 
-@pytest.mark.parametrize("p", [8, 64, 512])
+@pytest.mark.parametrize("p", [8, 16, 64, 128, 512])
 @pytest.mark.parametrize("ref_doppler, guard_doppler", [
-    (52, 8), (250, 5), (600, 0)])
+    (52, 8), (64, 16), (250, 5), (600, 0)])
 def test_rd_2d_takes_any_doppler_reach(dev, p, ref_doppler, guard_doppler):
     # Doppler reaches past any fixed tile halo, up to one wider than the CPI
     cfg = _rd_cfg(p, 1024)
@@ -1202,6 +1204,56 @@ def test_rd_2d_takes_any_doppler_reach(dev, p, ref_doppler, guard_doppler):
     assert _build.LAUNCHES["rd_2d"] == before + 1
     _assert_close(got, krd.fused_rd_2d_chain_reference(x, rt, rt2, TAPS, cfg,
                                                        cfg2d))
+
+
+# the detector's edge cases (csrc/cfar_2d.cuh), each at a CPI whose map has
+# one 32-row tile cut by its end (P = 8, 16), whole tiles (64) and many
+# (256): g = 0, w = 1, an active range clipped on both sides (active_lo is
+# set in the register struct; the registers leave it at 0), grouping at a
+# scaler low enough that the map's edges and tile seams hold peaks
+RD2_EDGES = {
+    "g 0": (dict(ref_range=8, guard_range=0, ref_doppler=4, guard_doppler=0,
+                 threshold_scaler=3.0), 0, None),
+    "w 1": (dict(ref_range=1, guard_range=2, ref_doppler=1, guard_doppler=1,
+                 threshold_scaler=3.0), 0, None),
+    "clipped both sides": (dict(ref_range=8, guard_range=2, ref_doppler=4,
+                                guard_doppler=1, threshold_scaler=2.0,
+                                peak_grouping=1), 37, 200),
+    "clipped inside a tile": (dict(ref_range=3, guard_range=1, ref_doppler=2,
+                                   guard_doppler=1, threshold_scaler=2.0),
+                              130, 141),
+    "grouping at the edges": (dict(ref_range=2, guard_range=1, ref_doppler=2,
+                                   guard_doppler=0, threshold_scaler=1.0,
+                                   peak_grouping=1), 0, None),
+}
+
+
+@pytest.mark.parametrize("p", [8, 16, 64, 256])
+@pytest.mark.parametrize("case", list(RD2_EDGES))
+def test_rd_2d_edge_cases(dev, p, case):
+    from rsp_chains_tpu_torch.ops.cfar_2d import cfar_2d_op
+
+    regs2, lo, hi = RD2_EDGES[case]
+    n = 256
+    cfg = _rd_cfg(p, n)
+    cfg2d = rsp.Cfar2dConfig()
+    x = _cpi((2, p, n), dev, seed=p)
+    rt = rsp.RuntimeConfig.make(fft_size=n)
+    rt2 = rsp.Cfar2dRuntime.make(**regs2)
+    regs = krd.cfar_2d_registers(rt, rt2, cfg2d, n)
+    regs.active_lo = lo
+    hi = regs.active_hi if hi is None else hi
+    regs.active_hi = hi
+    got = krd.rd_2d_launch(x, regs, TAPS, cfg)
+    mag = logmag(krd.rd_front_reference(x, TAPS, cfg), rt.mag_mode)
+    want = cfar_2d_op(mag, rt2, cfg2d, active_lo=lo, active_hi=hi)
+    _assert_close(got, want)
+    if case == "grouping at the edges":
+        edges = torch.zeros_like(want.peaks)
+        edges[..., 0, :] = edges[..., -1, :] = True
+        edges[..., :, 0] = edges[..., :, -1] = True
+        assert (want.peaks & edges).any()
+        assert torch.equal(got.peaks & edges, want.peaks & edges)
 
 
 def test_rd_2d_takes_more_cpis_than_a_grid_axis_of_65535(dev):
