@@ -30,10 +30,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    launch counters set to 0 just before it and read just after, each point
    asserting the kernel (or the integer ops) it took: ``fft_mag_cfar_chain``
    for the CA elaboration at the full batch and for the default elaboration,
-   the bit-true CA and bit-true GOSCA elaborations on 8-channel slices, at
-   the frame-per-block kernels' bound, N = 16384, and beyond it on the split
-   route of Kernels F and G (``csrc/int_split.cu``): the headline's samples
-   as 512 x 32768, 256 x 65536 and 1 x 2^18 frames and one frame of 2^20,
+   the bit-true CA and bit-true GOSCA elaborations on 8-channel slices, on
+   the mid-size route of Kernels F and G (``csrc/int_mid.cu``): the
+   headline's samples as 8192 x 2048, 4096 x 4096, 2048 x 8192 and 1024 x
+   16384 frames through the chain and directly, G also at the algorithm
+   register 0, and 256 frames of each size with expanding and keepLSB
+   stages, each exact and launching ``rsp_int_mid``; beyond N = 16384 on
+   the split route of Kernels F and G (``csrc/int_split.cu``): the
+   headline's samples as 512 x 32768, 256 x 65536 and 1 x 2^18 frames and one frame of 2^20,
    F at 512 x 32768 and G at 1 x 2^18 with expanding and keepLSB stages,
    then both integer register sweeps at N = 32768, and
    ``rx_fft_mag_cfar_tx_chain`` for the float CA and the bit-true
@@ -97,21 +101,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    windows 8, 32 and 64, each also with the algorithm register at 0, where
    the CA sums take the rank selection's place (the difference is the
    selection's own time), and the split route of F and G at each of its
-   sizes (``tail_times``: by CUDA events, on the card alone with the host's
-   launches queued ahead, and the host time a call); times the split
+   sizes, and F and G at the mid-size route's four shapes (``tail_times``:
+   by CUDA events, on the card alone with the host's launches queued
+   ahead, and the host time a call); times the split
    route of F and G at each of its sizes through the chain too, with a
    profile of its head, body and tail launches at 512 x 32768;
-   times Kernel F's row plan beside its frame-per-block kernel on the same
-   frames of 1024 (the bench's stage flags, and seven expanding stages);
+   times Kernel F on its three routes over the headline's samples (N =
+   1024 ... 32768) at the bench's stage flags and at seven expanding
+   stages;
    times, as yardsticks used nowhere in the port, ``torch.fft.fft`` +
    ``torch.fft.ifft`` over the same 16,384 rows of 1024 (for Kernel H's
    range rows) and ``torch.fft.fft`` over the pulses of the same planes
    (for the Doppler launch); prints each range-Doppler launch's byte bound;
    prints the registers, spills and stack frames of A's, D's, E's, F's,
-   G's and I's row kernels, the split route's kernels, B, C, G's
-   frame-per-block kernel and the range-Doppler kernels (Doppler columns,
-   range rows, 2-D detector) from the ``-Xptxas -v`` report; builds A's, D's, E's, F's, G's, I's and B's
-   seven sources once more at 1, 2, 3 and 4 blocks an SM
+   G's and I's row kernels, the mid-size and split routes' kernels, B, C
+   and the range-Doppler kernels (Doppler columns, range rows, 2-D
+   detector) from the ``-Xptxas -v`` report; builds A's, D's, E's, F's,
+   G's, I's and B's seven sources once more at 1, 2, 3 and 4 blocks an SM
    (``-DRSP_ROWS_BLOCKS``, ``-DRSP_E_BLOCKS``, ``-DRSP_B_BLOCKS``), each
    build checked against the plain versions (I at N = 4096), with its
    registers, and timed;
@@ -127,10 +133,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    apart).
 
 ``python3 chip_smoke.py --compare`` only builds the kernels and prints
-``tail_times`` with the split route's per-launch profile and the launch
-split of ``rd_ca``, ``rd_map`` and ``rd_2d`` (both 2-D points): a copy of the
-script in another checkout of the port (an earlier commit), run in the same
-call, times that checkout's kernels on the same card.
+``tail_times`` (F and G at the mid-size route's shapes too: an earlier
+checkout runs its frame-per-block kernels there) with the split route's
+per-launch profile and the launch split of ``rd_ca``, ``rd_map`` and
+``rd_2d`` (both 2-D points): a copy of the script in another checkout of
+the port (an earlier commit), run in the same call, times that checkout's
+kernels on the same card.
 
 Bars: for the float kernels the bench's (``bench.py:404``), max|dthr| /
 max|thr| < 1e-4 and peak flips <= 1e-5 of the cells; for the wire kernel the
@@ -139,17 +147,19 @@ within 2 LSB and 0.05 LSB on average, peak flips <= 1e-5; for the integer
 kernels and chains equality; for the complex range-Doppler map
 max|dmap| / max|map| < 1e-4; the sharded paths at the float bar against the
 unsharded chains. Any failed check raises. The last line is the
-JSON device record; the line before it lists the kernels (the split route
-of F and G as two more entries, ``chain_int_split`` and
-``chain_int_gos_split``, timed at 512 x 32768), each with its
-launches on the main paths, its error, its time, its plain version's, and its
-bound: the larger of its bytes over 3.35 TB/s and the least operations the
-function needs over the H100's rate for their type (the FFT's 5 N log2 N a
-frame, two along range and one along the pulses of each range column for the
-range-Doppler kernels; for the bit-true kernels N/2 log2 N butterflies of 17
-integer operations a frame; for the rank selections, a sorted window that
-slides by one cell, two binary searches a window start; the halo kernels by
-their bytes alone).
+JSON device record; the line before it lists the kernels (the mid-size
+route of F and G as two more entries, ``chain_int_mid`` and
+``chain_int_gos_mid``, timed at 1024 x 16384, and the split route as two
+more, ``chain_int_split`` and ``chain_int_gos_split``, timed at 512 x
+32768), each with its launches on the main paths, its error, its time,
+its plain version's, and its bound: the larger of its bytes over 3.35
+TB/s and the least operations the function needs over the H100's rate
+for their type (the FFT's 5 N log2 N a frame, two along range and one
+along the pulses of each range column for the range-Doppler kernels; for
+the bit-true kernels N/2 log2 N butterflies of 17 integer operations a
+frame; for the rank selections, a sorted window that slides by one cell,
+two binary searches a window start; the halo kernels by their bytes
+alone).
 """
 
 from __future__ import annotations
@@ -275,7 +285,12 @@ INT_GOS_SWEEP = [
     ("int GOS LUT log2", dict(mag_mode=3, log_or_linear=0,
                               threshold_scaler=2.0), {}, None),
 ]
-# Kernels F and G beyond the frame-per-block kernels' bound (the split route,
+# Kernels F and G on the mid-size route (csrc/int_mid.cu), each on the
+# headline's 16,777,216 samples as (frames, N); the points with expanding
+# and keepLSB stages run on MID_FLAGGED_FRAMES frames of each N
+MID_SHAPES = ((8192, 2048), (4096, 4096), (2048, 8192), (1024, 16384))
+MID_FLAGGED_FRAMES = 256
+# Kernels F and G beyond the mid-size route's bound (the split route,
 # csrc/int_split.cu), each on the headline's 16,777,216 samples as
 # (frames, N), and beyond the headline's samples one frame of 2^20 (two head
 # launches); the integer register sweeps run at the first N on
@@ -651,14 +666,23 @@ def sel_label(name: str, w: int, g: int, alg: int) -> str:
             f"g {g}, algorithm {alg}")
 
 
+def mid_label(name: str, frames: int, n: int) -> str:
+    """``tail_times``' label of Kernel F (``name`` chain_int) or G at
+    ``frames`` x ``n``, one of MID_SHAPES."""
+    regs = "GOS" if name == "chain_int_gos" else "headline"
+    return f"{name} at {frames}x{n}, {regs} registers"
+
+
 def tail_times(dev, profiles: bool = False) -> dict:
     """Kernel B at its points and frame sizes and Kernel I at its frame
     sizes, with Kernel A at the headline beside them as a yardstick, Kernel
     E at the wire points, Kernels D, F, G and H (``rd_ca``, ``rd_map``) at
     the headline (D under GOS and CASH registers), Kernel J at the bench's
     2-D registers and at the Doppler reach 80, Kernels C, D and G at each of
-    SEL_WINDOWS with the algorithm register at 1 and at 0, and the split
-    route of F and G at SPLIT_SHAPES; each on seeded inputs of SHAPE's
+    SEL_WINDOWS with the algorithm register at 1 and at 0, F and G at
+    MID_SHAPES (on this checkout the mid-size route; on checkouts before it
+    the frame-per-block kernels), and the split route of F and G at
+    SPLIT_SHAPES; each on seeded inputs of SHAPE's
     samples: (median ms by CUDA events, on the card alone (``device_ms``),
     host ms a call). Only entry points that every version of the port since
     its sharded chains has are called (the split route's since it came),
@@ -774,6 +798,14 @@ def tail_times(dev, profiles: bool = False) -> dict:
                 **{**PC_REGS, "fft_size": n}):
             kchain.pc_ca(v, r, c.fft, c.cfar, h))
     flat = rsp.C(xi.re.reshape(-1), xi.im.reshape(-1))
+    for f, n in MID_SHAPES:
+        v = rsp.C(flat.re[:f * n].reshape(f, n), flat.im[:f * n].reshape(f, n))
+        for name, fn, c, regs in (
+                ("chain_int", kint.chain_int, icfg, HEADLINE),
+                ("chain_int_gos", kint.chain_int_gos, igcfg, GOS_REGS)):
+            points[mid_label(name, f, n)] = (
+                lambda v=v, fn=fn, c=at_size(c, n), r=rsp.RuntimeConfig.make(
+                    **{**regs, "fft_size": n}): fn(v, r, c.fft, c.cfar))
     split0 = []
     for f, n in SPLIT_SHAPES:
         v = rsp.C(flat.re[:f * n].reshape(f, n), flat.im[:f * n].reshape(f, n))
@@ -2535,39 +2567,86 @@ def main() -> int:
         lambda out, name, rt_s: compare_exact(
             out, igplain(xis, rt_s), f"bit-true GOSCA chain [{name}]"))
 
-    # ---- the bit-true chains at the integer kernels' frame bound ----
-    nb = 1 << kint.MAX_LOG2N
+    # ---- the bit-true chains at N 2048-16384: the mid-size route ----
+    # the headline's integers as frames of each of MID_SHAPES: F (the CA
+    # registers on the CA elaboration) and G (the GOS registers on the GOSCA
+    # + CASH one) through the chain and called directly, G also with the
+    # algorithm register at 0 (F's tail in G's launch); on
+    # MID_FLAGGED_FRAMES frames, stages that expand and keep the LSB, stage
+    # 0 (the stage each block of N = 16384's cluster runs on both halves)
+    # among them; each exact against its plain version, launching the
+    # mid-size entry once
+    flat = rsp.C(xi16.re.reshape(-1), xi16.im.reshape(-1))
 
-    def at_bound(c):
-        return at_size(c, nb)
+    def frames_of(f, n):
+        return rsp.C(flat.re[:f * n].reshape(f, n),
+                     flat.im[:f * n].reshape(f, n))
 
-    xb = rsp.C(*(torch.randint(-8000, 8001, (GOS_CHUNK, nb), device=dev,
-                               generator=gen, dtype=torch.int32)
-                 for _ in range(2)))
-    bound_points = [
-        (f"int CA N {nb}", rsp.RuntimeConfig.make(**{**HEADLINE,
-                                                     "fft_size": nb}),
-         "chain_int", rsp.fft_mag_cfar_chain(at_bound(icfg)),
-         rsp.fft_mag_cfar_chain(at_bound(iplain_cfg))),
-        (f"int GOS N {nb}", rsp.RuntimeConfig.make(**{**GOS_REGS,
-                                                      "fft_size": nb}),
-         "chain_int_gos", rsp.fft_mag_cfar_chain(at_bound(igcfg)),
-         rsp.fft_mag_cfar_chain(at_bound(igplain_cfg)))]
-    int_bound_launches = sweep(
-        f"bit-true path at N {nb}", bound_points,
-        lambda rt_s, top, plain_top: top(xb, rt_s),
-        lambda out, name, rt_s, top, plain_top: compare_exact(
-            out, plain_top(xb, rt_s), f"bit-true chain [{name}]"))
+    mid_x = {n: frames_of(f, n) for f, n in MID_SHAPES}
+    mid_tops = {}
+    for n in mid_x:
+        for tag, top_cfg, plain_base, regs in (
+                ("F", icfg, iplain_cfg, HEADLINE),
+                ("G", igcfg, igplain_cfg, GOS_REGS)):
+            mid_tops[tag, n] = (
+                rsp.fft_mag_cfar_chain(at_size(top_cfg, n)),
+                rsp.fft_mag_cfar_chain(at_size(plain_base, n)),
+                rsp.RuntimeConfig.make(**{**regs, "fft_size": n}))
+    mid_flags = {"F": (dict(expand=(0, 4, 9), lsb=(1, 7)), HEADLINE),
+                 "G": (dict(expand=(3,), lsb=(0, 5)), GOS_REGS)}
+    mid_points = []
+    for n, v in mid_x.items():
+        shape = f"{v.shape[0]}x{n}"
+        log2n = n.bit_length() - 1
+        for tag in ("F", "G"):
+            top, plain_top, rt_n = mid_tops[tag, n]
+            kernel = "chain_int_mid" if tag == "F" else "chain_int_gos_mid"
+            what = "CA" if tag == "F" else "GOS"
+            mid_points.append((f"int {what} {shape}", rt_n, kernel, top,
+                               plain_top, v))
+            c = at_size(icfg if tag == "F" else igcfg, n)
+            fn, ref = ((kint.chain_int, kint.chain_int_reference)
+                       if tag == "F" else
+                       (kint.chain_int_gos, kint.chain_int_gos_reference))
+            mid_points.append((
+                f"{fn.__name__} {shape}, direct", rt_n, kernel,
+                lambda u, r, fn=fn, c=c: fn(u, r, c.fft, c.cfar),
+                lambda u, r, ref=ref, c=c: ref(u, r, c.fft, c.cfar), v))
+            masks, regs = mid_flags[tag]
+            fft_n = rsp.FftConfig(
+                max_size=n,
+                expand_logic=tuple(int(s in masks["expand"])
+                                   for s in range(log2n)),
+                keep_msb_or_lsb=tuple(int(s not in masks["lsb"])
+                                      for s in range(log2n)))
+            base_cfg, base_plain = ((icfg, iplain_cfg) if tag == "F"
+                                    else (igcfg, igplain_cfg))
+            mid_points.append((
+                f"int {what} {MID_FLAGGED_FRAMES}x{n}, expanding "
+                f"{masks['expand']}, keepLSB {masks['lsb']}", rt_n, kernel,
+                *(rsp.fft_mag_cfar_chain(dataclasses.replace(
+                    at_size(b, n), fft=fft_n)) for b in (base_cfg, base_plain)),
+                frames_of(MID_FLAGGED_FRAMES, n)))
+        gc = at_size(igcfg, n)
+        rt0 = mid_tops["G", n][2].merge_regs(cfar_algorithm=0)
+        mid_points.append((
+            f"chain_int_gos {shape}, algorithm 0, direct", rt0,
+            "chain_int_gos_mid",
+            lambda u, r, c=gc: kint.chain_int_gos(u, r, c.fft, c.cfar),
+            lambda u, r, c=gc: kint.chain_int_gos_reference(u, r, c.fft,
+                                                            c.cfar), v))
+    mid_launches = sweep(
+        "bit-true path at N 2048-16384", mid_points,
+        lambda rt_s, top, plain_top, v: top(v, rt_s),
+        lambda out, name, rt_s, top, plain_top, v: compare_exact(
+            out, plain_top(v, rt_s), f"bit-true chain [{name}]"))
 
     # ---- the bit-true chains beyond it: the split route ----
     # the headline's integers as frames of each of SPLIT_SHAPES, one frame of
     # SPLIT_LONG, the CA registers on the CA elaboration (F) and the GOS
     # registers on the GOSCA + CASH one (G), each through the chain and
     # exact against the plain chain (the integer ops, chunked by cells)
-    flat = rsp.C(xi16.re.reshape(-1), xi16.im.reshape(-1))
-    split_x = {n: rsp.C(flat.re[:f * n].reshape(f, n),
-                        flat.im[:f * n].reshape(f, n))
-               for f, n in SPLIT_SHAPES}
+    split_x = {n: frames_of(f, n) for f, n in SPLIT_SHAPES}
     split_x[SPLIT_LONG] = rsp.C(*(torch.randint(
         -8000, 8001, (1, SPLIT_LONG), device=dev, generator=gen,
         dtype=torch.int32) for _ in range(2)))
@@ -2968,7 +3047,7 @@ def main() -> int:
     if _build.BUILDS != 1:
         raise AssertionError(f"library built {_build.BUILDS} times, not once")
     paths = (ca_launches, gos_launches, int_launches, int_gos_launches,
-             int_bound_launches, split_launches, split_sweep_launches,
+             mid_launches, split_launches, split_sweep_launches,
              wire_launches, rd_launches, rd_gos_launches,
              det_launches, pc_launches, rd_wire_launches, rd2_launches,
              rd2_far_launches, *src_launches, *serve_launches,
@@ -2976,6 +3055,7 @@ def main() -> int:
     launches = {k: sum(p.get(k, 0) for p in paths)
                 for k in ("chain_ca", "mag_cfar", "mag_gos_cfar", "chain_gos",
                           "wire_ca", "chain_int", "chain_int_gos",
+                          "chain_int_mid", "chain_int_gos_mid",
                           "chain_int_split", "chain_int_gos_split", "rd_ca",
                           "rd_map", "pc_ca", "rd_2d", "halo_exchange",
                           "mag_extend")}
@@ -3107,6 +3187,28 @@ def main() -> int:
     tails = tail_times(dev)
     print_tail_times(tails, card)
 
+    # ---- Kernels F and G at N 2048-16384: the mid-size route ----
+    # each kernel on the card alone (tail_times' at MID_SHAPES, on the same
+    # frames), its chain by events, its plain version over 5 calls
+    mid_times = {}
+    for (tag, n), (top, plain_top, rt_n) in mid_tops.items():
+        v = mid_x[n]
+        c = at_size(icfg if tag == "F" else igcfg, n)
+        name, fn, ref = (
+            ("chain_int_mid", kint.chain_int, kint.chain_int_reference)
+            if tag == "F" else ("chain_int_gos_mid", kint.chain_int_gos,
+                                kint.chain_int_gos_reference))
+        shape = "x".join(map(str, v.shape))
+        ms = tails[mid_label(fn.__name__, v.shape[0], n)][1]
+        chain_ms = time_ms(lambda: top(v, rt_n))
+        plain_ms = time_ms(lambda: ref(v, rt_n, c.fft, c.cfar), calls=5,
+                           warm=1)
+        mid_times[name, n] = (ms, plain_ms)
+        print(f"{name} at {shape}: kernel {ms:.4f} ms on the card alone = "
+              f"{v.re.numel() / ms / 1e3:.1f} Msamples/s, through "
+              f"fft_mag_cfar_chain {chain_ms:.4f} ms, plain {plain_ms:.4f} ms; "
+              f"card {card}")
+
     # ---- Kernels F and G beyond N 16384: the split route ----
     # each kernel by CUDA events (tail_times' at SPLIT_SHAPES, on the same
     # frames), its chain too, its plain version over 5 calls; the profile
@@ -3136,29 +3238,27 @@ def main() -> int:
             profile(lambda: fn(v, rt_n, c.fft, c.cfar), f"{name} at {shape}",
                     ())
 
-    # ---- Kernel F's two routes at the headline shape ----
-    # the row plan (frames of 256-1024) beside the frame-per-block kernel
-    # (entry rsp_chain_int, the route of frames of 2048 and more) called
-    # directly on the same frames, at the bench's stage flags and at seven
-    # expanding stages, where the row plan's stages take their flags at run
-    # time; exact against each other, timed in turns (rows, frame, frame,
-    # rows), each the mean of its two
-    wide = rsp.FftConfig(max_size=SHAPE[-1], expand_logic=tuple(
-        int(s < 7) for s in range(bw)))
-    for label, fcfg in (("bench stage flags", icfg.fft),
-                        ("7 expanding stages", wide)):
-        rows_f, frame_f = (
-            lambda s=s, c=fcfg: kint._int_kernel("chain_int", s, xi16, rt, c,
-                                                 icfg.cfar)
-            for s in ("rsp_chain_int_rows", "rsp_chain_int"))
-        compare_exact(rows_f(), frame_f(), f"chain_int row plan vs "
-                                           f"frame-per-block [{label}]")
-        r1, f1, f2, r2 = (time_ms(fn) for fn in (rows_f, frame_f, frame_f,
-                                                 rows_f))
-        print(f"chain_int at {'x'.join(map(str, SHAPE))}, {label}: row plan "
-              f"{(r1 + r2) / 2:.4f} ms ({r1:.4f}, {r2:.4f}), frame-per-block "
-              f"kernel {(f1 + f2) / 2:.4f} ms ({f1:.4f}, {f2:.4f}); card "
-              f"{card}")
+    # ---- Kernel F's routes on the headline's samples ----
+    # the row plan (N 1024), the mid-size route (2048-16384) and the split
+    # route (32768) over the same integers, at the bench's stage flags and at
+    # seven expanding stages, where the stages read their flags at run time;
+    # each flagged call exact against its plain version
+    for n in (SHAPE[-1],) + tuple(n for _, n in MID_SHAPES) + (
+            SPLIT_SHAPES[0][1],):
+        v = frames_of(samples // n, n)
+        c = at_size(icfg, n)
+        rt_n = rt.merge_regs(fft_size=n)
+        wide = rsp.FftConfig(max_size=n, expand_logic=tuple(
+            int(s < 7) for s in range(n.bit_length() - 1)))
+        compare_exact(kint.chain_int(v, rt_n, wide, c.cfar),
+                      kint.chain_int_reference(v, rt_n, wide, c.cfar),
+                      f"chain_int at N {n}, 7 expanding stages")
+        plain_flags, wide_ms = (
+            device_ms(lambda f=f: kint.chain_int(v, rt_n, f, c.cfar))
+            for f in (c.fft, wide))
+        print(f"chain_int at {v.shape[0]}x{n}, on the card alone: bench stage "
+              f"flags {plain_flags:.4f} ms, 7 expanding stages {wide_ms:.4f} "
+              f"ms; card {card}")
 
     # ---- the rank selection of Kernels C, D and G on its own ----
     # each kernel at the GOS registers over the windows of SEL_WINDOWS, and
@@ -3184,7 +3284,7 @@ def main() -> int:
                                  "rsp_chain_gos_rows_kernel",
                                  "rsp_mag_gos_cfar_kernel",
                                  "rsp_chain_int_gos_rows_kernel",
-                                 "rsp_chain_int_gos_kernel",
+                                 "rsp_int_mid_kernel",
                                  "rsp_rd_rows_kernel",
                                  "rsp_rd_doppler_kernel",
                                  "rsp_cfar2d_kernel")).items():
@@ -3262,14 +3362,17 @@ def main() -> int:
         bounds[name] = (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
         print(f"bound {name}: {nbytes / 1e6:.1f} MB over the 4 shards -> "
               f"{bounds[name][0]:.4f} ms")
-    # the split route at each size: the function's 13 bytes a sample, the
-    # butterflies of its N/2 log2 N a frame, G's selection over its windows
-    for (name, n), _ in split_times.items():
-        v, rt_n = split_x[n], split_tops["F" if name == "chain_int_split"
-                                         else "G", n][2]
+    # the mid-size and split routes at each size: the function's 13 bytes a
+    # sample, the butterflies of its N/2 log2 N a frame, G's selection over
+    # its windows
+    for (name, n), _ in (*mid_times.items(), *split_times.items()):
+        v, rt_n = ((mid_x[n], mid_tops["G" if "gos" in name else "F", n][2])
+                   if name.endswith("_mid") else
+                   (split_x[n], split_tops["G" if "gos" in name else "F",
+                                           n][2]))
         frames_s, log2n = v.shape[0], n.bit_length() - 1
         cmp = 0
-        if name == "chain_int_gos_split":
+        if "gos" in name:
             lw, gd = window_registers(rt_n, igcfg.cfar)
             st = np.arange(-gd - (1 << lw), n + gd + 1)
             act = min(rt_n.cfar_fft_size, n)
@@ -3325,11 +3428,15 @@ def main() -> int:
     profile(lambda: tail14(placed, rt), "range-sharded tail 1x4, placed", ())
     profile(lambda: khalo.halo_exchange(re_row, 128), "halo_exchange 1x4", ())
 
-    n0_split = SPLIT_SHAPES[0][1]
+    n0_split, n_mid = SPLIT_SHAPES[0][1], MID_SHAPES[-1][1]
     for name in ("chain_int_split", "chain_int_gos_split"):
         times[name] = (*split_times[name, n0_split], None)
         bounds[name] = bounds[name, n0_split]
+    for name in ("chain_int_mid", "chain_int_gos_mid"):
+        times[name] = (*mid_times[name, n_mid], None)
+        bounds[name] = bounds[name, n_mid]
     errs = {"chain_int_split": 0.0, "chain_int_gos_split": 0.0,
+            "chain_int_mid": 0.0, "chain_int_gos_mid": 0.0,
             "chain_ca": err_a, "mag_cfar": err_b, "mag_gos_cfar": err_c,
             "chain_gos": err_d, "wire_ca": err_e, "chain_int": err_f,
             "chain_int_gos": err_g, "rd_ca": err_h, "rd_map": err_hm,
@@ -3348,6 +3455,10 @@ def main() -> int:
                       "rsp_chains_tpu/kernels/int_chain_pallas.py:441"),
         "chain_int_gos": ("chain_int_gos.cu",
                           "rsp_chains_tpu/kernels/int_chain_pallas.py:552"),
+        "chain_int_mid": ("int_mid.cu",
+                          "rsp_chains_tpu/kernels/int_chain_pallas.py:441"),
+        "chain_int_gos_mid": (
+            "int_mid.cu", "rsp_chains_tpu/kernels/int_chain_pallas.py:552"),
         "chain_int_split": ("int_split.cu",
                             "rsp_chains_tpu/kernels/int_chain_pallas.py:441"),
         "chain_int_gos_split": (

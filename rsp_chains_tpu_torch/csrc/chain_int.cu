@@ -13,84 +13,20 @@
 // sign extension), N/2 log2 N of them a frame, so at N = 1024 the bytes
 // (0.065 ms at 64 x 256 frames) outweigh the operations (0.043 ms). The TPU
 // computes the butterflies with lane rotations and the bit reversal with
-// log2(N)/2 transposition steps because Mosaic has no per-lane gather. Two routes, chosen on the host by N alone
-// (kernels/int_chain.py):
-//
-// * N = 256, 512, 1024 (rsp_chain_int_rows_kernel<N>, entry
-//   rsp_chain_int_rows): the row plan of row_fft.cuh, N / 16 threads a
-//   frame and 256 / (N / 16) frames a block, each stage's butterflies in
-//   registers, 1 or 2 exchanges through shared memory (int_rows.cuh), the
-//   magnitude stored at its natural bin (__brev) and the integer run-sum CA
-//   tail; 55,296 bytes of shared memory a block at N = 1024; three blocks
-//   an SM (RSP_ROWS_BLOCKS; 80 registers, no spills), the fastest of 1 to 4
-//   (chip_smoke.py `row_blocks`).
-// * N = 2048 .. 16384 (rsp_chain_int_kernel, entry rsp_chain_int): one frame
-//   a block; a butterfly reads its two cells from shared memory, a
-//   __syncthreads() a stage (`rsp_int_front`), and the magnitude reads bin k
-//   from __brev(k), so the frame, its spectrum and the magnitude row
-//   (2 N + N + 2*RSP_PAD ints, 197,632 bytes at N = 16384) never leave
-//   shared memory; the direct window sums of `rsp_int_ca_sums`.
+// log2(N)/2 transposition steps because Mosaic has no per-lane gather. This
+// file holds the route of N = 256, 512, 1024 (rsp_chain_int_rows_kernel<N>,
+// entry rsp_chain_int_rows): the row plan of row_fft.cuh, N / 16 threads a
+// frame and 256 / (N / 16) frames a block, each stage's butterflies in
+// registers, 1 or 2 exchanges through shared memory (int_rows.cuh), the
+// magnitude stored at its natural bin (__brev) and the integer run-sum CA
+// tail; 55,296 bytes of shared memory a block at N = 1024; three blocks an
+// SM (RSP_ROWS_BLOCKS; 80 registers, no spills), the fastest of 1 to 4
+// (chip_smoke.py `row_blocks`). The host (kernels/int_chain.py) picks the
+// route by N alone: frames of 2048-16384 take int_mid.cu (one launch, 8192
+// cells a block in registers), longer ones int_split.cu.
 #include <cuda_runtime.h>
 
-#include "int_front.cuh"
 #include "int_rows.cuh"
-
-__global__ void __launch_bounds__(RSP_THREADS)
-rsp_chain_int_kernel(const int* __restrict__ re, const int* __restrict__ im,
-                     const int2* __restrict__ tw, int* __restrict__ thr,
-                     uint8_t* __restrict__ peaks, int log2n,
-                     unsigned expand_mask, unsigned lsb_mask, RspIntRegs r) {
-  extern __shared__ int ismem[];
-  const int n = 1 << log2n;
-  int* xr = ismem;
-  int* xi = ismem + n;
-  int* row = ismem + 2 * n;  // [RSP_PAD | n | RSP_PAD]
-  const size_t base = (size_t)blockIdx.x * n;
-
-  rsp_int_front(re + base, im + base, tw, xr, xi, row, log2n, expand_mask,
-                lsb_mask, r);
-
-  const int w = 1 << r.log2w;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if (i >= r.n_active) {
-      thr[base + i] = 0;
-      peaks[base + i] = 0;
-      continue;
-    }
-    const int* c = row + RSP_PAD + i;
-    int lag, lead;
-    rsp_int_ca_sums(c, r.guard, w, lag, lead);
-    const int noise =
-        rsp_int_combine(r.cfar_mode, lag >> r.div_sum, lead >> r.div_sum);
-    int t;
-    uint8_t pk;
-    rsp_int_thr_peak(c, i, noise, r, t, pk);
-    thr[base + i] = t;
-    peaks[base + i] = pk;
-  }
-}
-
-// re, im, thr: int32 [frames, 2^log2n]; peaks: uint8 [frames, 2^log2n];
-// tw: int32 [2^log2n, 2] (see rsp_int_fft); all contiguous on the current
-// device, 8 <= log2n <= 14 (kernels/int_chain.py takes it for 11 and up).
-// Launches on `stream`; returns cudaGetLastError().
-extern "C" int rsp_chain_int(const int* re, const int* im, int* thr,
-                             uint8_t* peaks, int frames, cudaStream_t stream,
-                             const int* tw, int log2n, int expand_mask,
-                             int lsb_mask, RspIntRegs regs) {
-  const int n = 1 << log2n;
-  const size_t smem = (size_t)(3 * n + 2 * RSP_PAD) * sizeof(int);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        rsp_chain_int_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  rsp_chain_int_kernel<<<frames, RSP_THREADS, smem, stream>>>(
-      re, im, reinterpret_cast<const int2*>(tw), thr, peaks, log2n,
-      (unsigned)expand_mask, (unsigned)lsb_mask, regs);
-  return (int)cudaGetLastError();
-}
 
 // Kernel F over `frames` frames of kN cells. Grid ceil(frames / kRows).
 template <int kN>
@@ -143,7 +79,10 @@ static int rsp_chain_int_rows_launch(const int* re, const int* im, int* thr,
   return (int)cudaGetLastError();
 }
 
-// As rsp_chain_int, for 8 <= log2n <= 10.
+// re, im, thr: int32 [frames, 2^log2n]; peaks: uint8 [frames, 2^log2n];
+// tw: int32 [2^log2n, 2] (int_front.cuh); all contiguous on the current
+// device, 8 <= log2n <= 10. Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int rsp_chain_int_rows(const int* re, const int* im, int* thr,
                                   uint8_t* peaks, int frames,
                                   cudaStream_t stream, const int* tw,

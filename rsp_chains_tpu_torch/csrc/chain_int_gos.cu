@@ -23,108 +23,24 @@
 // Bound on the H100: device memory for the function (13 bytes a cell, 0.065
 // ms at 64 x 256 frames of 1024); the kernel is held, as C and D, by the
 // selection's pipe to shared memory and shuffles (gos_cfar.cuh,
-// gos_rows.cuh). Two routes, chosen on the host by N alone
-// (kernels/int_chain.py; the split route beyond N = 16384 is int_split.cu):
-//
-// * N = 256, 512, 1024 (rsp_chain_int_gos_rows_kernel<N>, entry
-//   rsp_chain_int_gos_rows): Kernel F's row plan, N / 16 threads a frame and
-//   256 / (N / 16) frames a block, each stage's butterflies in registers, 1
-//   or 2 exchanges through shared memory and the magnitude stored at its
-//   natural bin (`rsp_int_front_rows`, int_rows.cuh); then the selection
-//   over the block's frames with the ranks kept by cell in the dead FFT
-//   planes (gos_rows.cuh), and a tail whose thread takes the cells
-//   m + (N / 16) k, a warp's stores coalesced; with algorithm 0 F's
-//   run-sum CA tail (`rsp_int_ca_runs`). 55,552 bytes of shared memory a
-//   block at N = 1024 (RspGosRows), three blocks an SM (RSP_ROWS_BLOCKS).
-// * N = 2048 .. 16384 (rsp_chain_int_gos_kernel, entry rsp_chain_int_gos):
-//   one frame a block, the frame-per-block front `rsp_int_front` (a
-//   __syncthreads() a butterfly stage), the magnitude row and the frame,
-//   whose space the two statistic rows take once the front is done
-//   (3 * (N + 2*RSP_PAD) ints, 199,680 bytes at N = 16384).
+// gos_rows.cuh). This file holds the route of N = 256, 512, 1024
+// (rsp_chain_int_gos_rows_kernel<N>, entry rsp_chain_int_gos_rows): Kernel
+// F's row plan, N / 16 threads a frame and 256 / (N / 16) frames a block,
+// each stage's butterflies in registers, 1 or 2 exchanges through shared
+// memory and the magnitude stored at its natural bin
+// (`rsp_int_front_rows`, int_rows.cuh); then the selection over the
+// block's frames with the ranks kept by cell in the dead FFT planes
+// (gos_rows.cuh), and a tail whose thread takes the cells m + (N / 16) k, a
+// warp's stores coalesced; with algorithm 0 F's run-sum CA tail
+// (`rsp_int_ca_runs`). 55,552 bytes of shared memory a block at N = 1024
+// (RspGosRows), three blocks an SM (RSP_ROWS_BLOCKS). The host
+// (kernels/int_chain.py) picks the route by N alone: frames of 2048-16384
+// take int_mid.cu (one launch, the selection of gos_cfar.cuh over rows in
+// shared memory), longer ones int_split.cu.
 #include <cuda_runtime.h>
 
 #include "gos_rows.cuh"
-#include "int_front.cuh"
 #include "int_rows.cuh"
-
-__global__ void __launch_bounds__(RSP_THREADS)
-rsp_chain_int_gos_kernel(const int* __restrict__ re,
-                         const int* __restrict__ im,
-                         const int2* __restrict__ tw, int* __restrict__ thr,
-                         uint8_t* __restrict__ peaks, int log2n,
-                         unsigned expand_mask, unsigned lsb_mask,
-                         RspIntRegs r) {
-  extern __shared__ int ismem[];
-  const int n = 1 << log2n;
-  int* row = ismem;                   // [RSP_PAD | n | RSP_PAD]
-  int* xr = row + n + 2 * RSP_PAD;
-  int* xi = xr + n;
-  // by window start, like `row`; over the frame, which the front has read
-  int* st0 = xr;
-  int* st1 = st0 + n + 2 * RSP_PAD;
-  const size_t base = (size_t)blockIdx.x * n;
-
-  rsp_int_front(re + base, im + base, tw, xr, xi, row, log2n, expand_mask,
-                lsb_mask, r);
-
-  const int w = 1 << r.log2w, g = r.guard, hi = r.n_active;
-  if (r.algorithm == 1) {
-    // st0[s] / st1[s]: the lag / lead rank statistic of the window of cells
-    // s - RSP_PAD .. s - RSP_PAD + w - 1 over the active cells [0, hi)
-    rsp_gos_stats(row, st0, st1, RSP_PAD - g - w, RSP_PAD + n + g + 1, w,
-                  RSP_PAD, RSP_PAD + hi, r.rank_lagg, r.rank_lead);
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if (i >= hi) {
-      thr[base + i] = 0;
-      peaks[base + i] = 0;
-      continue;
-    }
-    const int s = RSP_PAD + i;
-    const int* c = row + s;
-    int s_lag, s_lead;
-    if (r.algorithm == 1) {
-      s_lag = st0[s - g - w];
-      s_lead = st1[s + g + 1];
-    } else {
-      int lag, lead;
-      rsp_int_ca_sums(c, g, w, lag, lead);
-      s_lag = lag >> r.div_sum;
-      s_lead = lead >> r.div_sum;
-    }
-    int t;
-    uint8_t pk;
-    rsp_int_thr_peak(c, i, rsp_int_combine(r.cfar_mode, s_lag, s_lead), r, t,
-                     pk);
-    thr[base + i] = t;
-    peaks[base + i] = pk;
-  }
-}
-
-// re, im, thr: int32 [frames, 2^log2n]; peaks: uint8 [frames, 2^log2n];
-// tw: int32 [2^log2n, 2] (see rsp_int_fft); all contiguous on the current
-// device, 8 <= log2n <= 14 (kernels/int_chain.py takes it for 11 and up).
-// Launches on `stream`; returns cudaGetLastError().
-extern "C" int rsp_chain_int_gos(const int* re, const int* im, int* thr,
-                                 uint8_t* peaks, int frames,
-                                 cudaStream_t stream, const int* tw, int log2n,
-                                 int expand_mask, int lsb_mask,
-                                 RspIntRegs regs) {
-  const int n = 1 << log2n;
-  const size_t smem = (size_t)3 * (n + 2 * RSP_PAD) * sizeof(int);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        rsp_chain_int_gos_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  rsp_chain_int_gos_kernel<<<frames, RSP_THREADS, smem, stream>>>(
-      re, im, reinterpret_cast<const int2*>(tw), thr, peaks, log2n,
-      (unsigned)expand_mask, (unsigned)lsb_mask, regs);
-  return (int)cudaGetLastError();
-}
 
 // The thresholds and peaks of a frame's cells m + kT j (j < 16), one
 // thread's, from their lag and lead rank statistics st0 / st1[cell]: the
@@ -217,7 +133,10 @@ static int rsp_chain_int_gos_rows_launch(const int* re, const int* im,
   return (int)cudaGetLastError();
 }
 
-// As rsp_chain_int_gos, for 8 <= log2n <= 10.
+// re, im, thr: int32 [frames, 2^log2n]; peaks: uint8 [frames, 2^log2n];
+// tw: int32 [2^log2n, 2] (int_front.cuh); all contiguous on the current
+// device, 8 <= log2n <= 10. Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int rsp_chain_int_gos_rows(const int* re, const int* im, int* thr,
                                       uint8_t* peaks, int frames,
                                       cudaStream_t stream, const int* tw,

@@ -1,9 +1,8 @@
-// Shared device functions of the bit-true integer kernels (F: chain_int.cu,
-// G: chain_int_gos.cu): the integer FFT butterfly, the frame-per-block FFT
-// and magnitude front (G, and F for frames of 2048 and more; F's frames of
-// 256-1024 take the same butterflies on the row plan of int_rows.cuh), the
-// integer CA window sums and the threshold and peak test, over one frame in
-// shared memory.
+// Shared device functions of the bit-true integer kernels (F and G on every
+// route: the row plan of int_rows.cuh for N = 256-1024, int_mid.cu for
+// 2048-16384, int_split.cu beyond): the register struct, the integer FFT
+// butterfly, the integer magnitude, and the per-cell mode, threshold and
+// peak test.
 //
 // Replaces, in rsp_chains_tpu/kernels/int_chain_pallas.py, `_int_front`
 // (:131) and `_int_thr_peaks_tail` (:207), and the CA rows of
@@ -15,13 +14,16 @@
 //   non-expanding stage the RoundHalfUp halving (v + 1) >> 1, or on a keepLSB
 //   stage the 16-bit wraparound trim; then the 1.15 twiddle (unity on the sum
 //   side) rounded (p + 2^14) >> 15, in the 8-bit split form once a stage has
-//   expanded; a keepLSB stage wraps the product too. The bins come out
-//   bit-reversed and the magnitude reads them through __brev.
+//   expanded; a keepLSB stage wraps the product too. The twiddle table tw
+//   (kernels/int_chain.py `_int_twiddles`): row h + j holds the 1.15
+//   (cos, sin) of W_{2h}^j, j < h, for every stage's half-block h. The
+//   bins come out bit-reversed and each kernel stores bin __brev(cell).
 // * magnitude 0: exact floor(sqrt) of the saturating square sum (a float seed
 //   and integer corrections; sqrtf is IEEE, never built with fast math);
 //   1: the square sum, saturated to INT32_MAX where it wraps; 2: JPL
 //   shift-add.
-// * CA: window sums, `>> divSum` (arithmetic), the mode, the threshold
+// * CA: window sums (the run sums of row_fft.cuh `rsp_run_sums`, wrapping
+//   uint32_t), `>> divSum` (arithmetic), the mode, the threshold
 //   (noise * scaler_q + 32) >> 6 or noise + scaler_add, active masking and
 //   peak grouping on raw magnitudes.
 //
@@ -125,38 +127,6 @@ static __device__ __forceinline__ void rsp_int_butterfly(
   bi = yi1;
 }
 
-// The integer FFT of the frame xr/xi (shared memory, 2^log2n ints each,
-// natural order) in place; the result is in bit-reversed order. tw[h + j]
-// holds the 1.15 twiddle (cos, sin) of W_{2h}^j, j < h, for every stage's
-// half-block h. Bit s of `expand_mask` marks an expanding stage, of
-// `lsb_mask` a keepLSB stage. `grown`: whether a stage before the first one
-// expanded (the sub-frames of int_split.cu, whose first stages ran in an
-// earlier launch). Every thread of the block takes part; starts and ends
-// with __syncthreads().
-static __device__ __forceinline__ void rsp_int_fft(int* xr, int* xi,
-                                                   const int2* __restrict__ tw,
-                                                   int log2n,
-                                                   unsigned expand_mask,
-                                                   unsigned lsb_mask,
-                                                   bool grown = false) {
-  const int n = 1 << log2n;
-  __syncthreads();
-  for (int s = 0; s < log2n; ++s) {
-    const int half = n >> (s + 1);
-    const bool expanding = (expand_mask >> s) & 1u;
-    const bool lsb = !expanding && ((lsb_mask >> s) & 1u);
-    grown = grown || expanding;
-    for (int b = threadIdx.x; b < n / 2; b += blockDim.x) {
-      const int j = b & (half - 1);
-      const int i0 = ((b >> (log2n - 1 - s)) << (log2n - s)) + j;
-      const int i1 = i0 + half;
-      rsp_int_butterfly(xr[i0], xi[i0], xr[i1], xi[i1], tw[half + j],
-                        expanding, lsb, grown);
-    }
-    __syncthreads();
-  }
-}
-
 // |v| with INT32_MIN staying INT32_MIN, as jnp.abs does.
 static __device__ __forceinline__ int rsp_iabs(int v) {
   return v < 0 ? rsp_wsub(0, v) : v;
@@ -189,45 +159,6 @@ static __device__ __forceinline__ int rsp_int_magnitude(int re, int im,
   int sq = rsp_wadd(rsp_wmul(re, re), rsp_wmul(im, im));
   if (sq < 0) sq = 0x7FFFFFFF;
   return mode == 1 ? sq : rsp_isqrt(sq);
-}
-
-// The FFT front of Kernels F and G: frame `base` of re/im (device memory)
-// through the integer FFT in xr/xi, then the magnitude of each natural-order
-// bin into row[RSP_PAD + k], zero outside [0, n_active), with RSP_PAD zeros
-// on each side. Ends with __syncthreads().
-static __device__ __forceinline__ void rsp_int_front(
-    const int* __restrict__ re, const int* __restrict__ im,
-    const int2* __restrict__ tw, int* xr, int* xi, int* row, int log2n,
-    unsigned expand_mask, unsigned lsb_mask, const RspIntRegs& r) {
-  const int n = 1 << log2n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    xr[i] = re[i];
-    xi[i] = im[i];
-  }
-  for (int j = threadIdx.x; j < RSP_PAD; j += blockDim.x) {
-    row[j] = 0;
-    row[RSP_PAD + n + j] = 0;
-  }
-  rsp_int_fft(xr, xi, tw, log2n, expand_mask, lsb_mask);
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const int src = __brev(k) >> (32 - log2n);
-    row[RSP_PAD + k] =
-        k < r.n_active ? rsp_int_magnitude(xr[src], xi[src], r.mag_mode) : 0;
-  }
-  __syncthreads();
-}
-
-// Undivided window sums around the cell at `c` (wrapping): lag =
-// c[-guard-w .. -guard-1], lead = c[guard+1 .. guard+w].
-static __device__ __forceinline__ void rsp_int_ca_sums(const int* c, int guard,
-                                                       int w, int& lag,
-                                                       int& lead) {
-  lag = 0;
-  lead = 0;
-  for (int k = 1; k <= w; ++k) {
-    lag = rsp_wadd(lag, c[-guard - k]);
-    lead = rsp_wadd(lead, c[guard + k]);
-  }
 }
 
 // The noise of two side statistics: 1 GO, 2 SO, anything else the

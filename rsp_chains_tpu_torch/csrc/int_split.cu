@@ -1,7 +1,8 @@
 // Kernels F and G for frames of N = 2^L > 16384: the bit-true integer chain
-// in three launches through device memory, since the frame no longer fits one
-// block's shared memory (F's and G's frame-per-block kernels hold 197,632
-// and 199,680 bytes at N = 16384).
+// in three launches through device memory, since the frame no longer fits
+// the registers and shared memory of one block or of a pair of blocks
+// (int_mid.cu takes N = 2048-16384 in one launch: 8192 cells a block, two
+// blocks of a thread-block cluster at 16384).
 //
 // Replaces, for those frames, rsp_chains_tpu/kernels/int_chain_pallas.py::
 // fused_chain_int (:441, pallas_call :512) and ::fused_chain_int_gos (:552,
@@ -24,9 +25,10 @@
 // * Body (rsp_int_split_body_kernel): each contiguous sub-frame of 8192
 //   cells is then an independent DIF transform for stages s .. L-1, whose
 //   twiddles W_{2h}^j (h <= 4096) are rows h + j of the same table. A block
-//   of 1024 threads holds it in registers, 8 cells a thread, on F's register
-//   passes (int_rows.cuh `rsp_int_pass`): passes of 3 stages at the strides
-//   1024, 128, 16 and 2, one block an SM. Where no stage expands and none
+//   of 1024 threads holds it in registers, 8 cells a thread, on the
+//   8192-cell body of int_rows.cuh (`rsp_split_passes`, F's register passes
+//   `rsp_int_pass`): passes of 3 stages at the strides 1024, 128, 16 and 2,
+//   one block an SM. Where no stage expands and none
 //   of the body's keeps the LSB (the bench's flags), the launch takes the
 //   instantiation whose masks are the constant 0, so every stage flag folds
 //   away; any other reads the flags at run time, each stage through a
@@ -70,11 +72,9 @@
 #include "gos_cfar.cuh"
 #include "int_rows.cuh"
 
-#define RSP_SPLIT_LOG2 13         // the body's sub-frame, 8192 cells
 #define RSP_SPLIT_HEAD 5          // head stages a launch, at most
 #define RSP_SPLIT_RUNS 7          // s up to which the hand-off is in runs
 #define RSP_SPLIT_TILE_LOG2 12    // the tail's tile, 4096 cells
-#define RSP_SPLIT_CELLS 8         // cells a body thread, 1024 threads
 
 // DIF stages t0 .. t0 + kS - 1 of frames of 2^log2n cells, a group of 2^kS
 // cells a thread: `groups` = frames 2^(log2n - kS) threads. re / im may be
@@ -117,105 +117,6 @@ rsp_int_split_head_kernel(const int* re, const int* im, int* yr, int* yi,
 // padding in 32.
 static __host__ __device__ constexpr int rsp_split_mag_slot(int k) {
   return k + (k >> 5);
-}
-
-// Where cell p of a body plane lives: the low 5 bits XOR-swizzled by bits
-// 5-7, so that each pass's exchange is free of bank conflicts.
-static __device__ __forceinline__ int rsp_split_slot(int p) {
-  const int q = p >> 5;
-  return p ^ ((q & 7) | ((q & 1) << 3) | ((q & 4) << 2));
-}
-
-// Slots k < RSP_SPLIT_CELLS to / from the cells b + stride k of the body's
-// planes.
-static __device__ __forceinline__ void rsp_split_put(int* pr, int* pi, int b,
-                                                     int stride,
-                                                     const int* xr,
-                                                     const int* xi) {
-#pragma unroll
-  for (int k = 0; k < RSP_SPLIT_CELLS; ++k) {
-    pr[rsp_split_slot(b + stride * k)] = xr[k];
-    pi[rsp_split_slot(b + stride * k)] = xi[k];
-  }
-}
-
-static __device__ __forceinline__ void rsp_split_get(const int* pr,
-                                                     const int* pi, int b,
-                                                     int stride, int* xr,
-                                                     int* xi) {
-#pragma unroll
-  for (int k = 0; k < RSP_SPLIT_CELLS; ++k) {
-    xr[k] = pr[rsp_split_slot(b + stride * k)];
-    xi[k] = pi[rsp_split_slot(b + stride * k)];
-  }
-}
-
-// The sub-frame's last DIF stage (stage 12: the cells 2j and 2j + 1, the
-// unity twiddle tw[1]) after a pass at stride 2, in registers: lanes m and
-// m ^ 1 hold a block's even and odd cells in slot order, and the even lane
-// takes the butterflies of slots k < 4, the odd lane the rest, each lane
-// trading half its slots with the other by shuffles. Leaves the cell 8 m + k
-// in slot k.
-static __device__ __forceinline__ void rsp_split_last(
-    int* xr, int* xi, int m, const int2* __restrict__ tw, unsigned em,
-    unsigned lm, bool grown) {
-  constexpr int H = RSP_SPLIT_CELLS / 2, st = RSP_SPLIT_LOG2 - 1;
-  const bool odd = m & 1;
-  const bool expanding = (em >> st) & 1u;
-  const bool lsb = !expanding && ((lm >> st) & 1u);
-  grown = grown || expanding;
-  const int2 w = __ldg(tw + 1);
-  int yr[RSP_SPLIT_CELLS], yi[RSP_SPLIT_CELLS];
-#pragma unroll
-  for (int k = 0; k < H; ++k) {
-    // the even lane's slot k pairs with the odd lane's slot k
-    const int gr = __shfl_xor_sync(0xffffffffu, odd ? xr[k] : xr[H + k], 1);
-    const int gi = __shfl_xor_sync(0xffffffffu, odd ? xi[k] : xi[H + k], 1);
-    int ar = odd ? gr : xr[k], ai = odd ? gi : xi[k];
-    int br = odd ? xr[H + k] : gr, bi = odd ? xi[H + k] : gi;
-    if (!grown && !lsb)
-      rsp_int_butterfly(ar, ai, br, bi, w, false, false, false);
-    else
-      rsp_int_butterfly(ar, ai, br, bi, w, expanding, lsb, grown);
-    yr[2 * k] = ar;
-    yi[2 * k] = ai;
-    yr[2 * k + 1] = br;
-    yi[2 * k + 1] = bi;
-  }
-#pragma unroll
-  for (int k = 0; k < RSP_SPLIT_CELLS; ++k) {
-    xr[k] = yr[k];
-    xi[k] = yi[k];
-  }
-}
-
-// Body pass kPass of a sub-frame on a thread's 8 cells: stages 3 kPass ..
-// 3 kPass + 2 on the cells base + stride k inside blocks of 2^(13 - 3 kPass)
-// cells (the pass's first stage pairs cells 4 stride apart); the slots cross
-// through the planes pr / pi to the next pass, and after the pass at stride
-// 2 the last stage runs across lane pairs (rsp_split_last). The first pass's
-// cells come in in the slots; the last stage's leave in them (slot k: cell
-// 8 m + k).
-template <int kPass>
-static __device__ __forceinline__ void rsp_split_passes(
-    int* xr, int* xi, int* pr, int* pi, int m, const int2* __restrict__ tw,
-    unsigned em, unsigned lm, bool& grown) {
-  constexpr int c = 3;  // log2 RSP_SPLIT_CELLS
-  constexpr int s0 = c * kPass;
-  constexpr int lb = RSP_SPLIT_LOG2 - s0;  // log2 of the block
-  constexpr int ls = lb - c;               // log2 of the stride
-  static_assert(ls >= 1, "13 stages: whole passes, then one stage");
-  const int base = ((m >> ls) << lb) | (m & ((1 << ls) - 1));
-  if (kPass > 0) rsp_split_get(pr, pi, base, 1 << ls, xr, xi);
-  rsp_int_pass<c, RSP_SPLIT_CELLS>(xr, xi, base, 1 << ls, s0, tw, em, lm,
-                                   grown);
-  if constexpr (ls == 1) {
-    rsp_split_last(xr, xi, m, tw, em, lm, grown);
-  } else {
-    rsp_split_put(pr, pi, base, 1 << ls, xr, xi);
-    __syncthreads();
-    rsp_split_passes<kPass + 1>(xr, xi, pr, pi, m, tw, em, lm, grown);
-  }
 }
 
 // Stages s .. log2n - 1 of each sub-frame of 8192 cells of yr / yi (one a
@@ -359,7 +260,7 @@ rsp_int_split_tail_kernel(const int* __restrict__ mag, int* __restrict__ thr,
 }
 
 // re, im, thr: int32 [frames, 2^log2n]; peaks: uint8 [frames, 2^log2n];
-// tw: int32 [2^log2n, 2] (see rsp_int_fft); scratch: int32 [3, frames,
+// tw: int32 [2^log2n, 2] (int_front.cuh); scratch: int32 [3, frames,
 // 2^log2n]; all contiguous on the current device, 15 <= log2n <= 30. The
 // algorithm register picks F's CA (anything but 1) or G's rank statistics
 // (1). Launches the head (one launch a group of up to five stages), the body

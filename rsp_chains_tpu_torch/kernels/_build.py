@@ -25,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("mag_cfar.cu", "chain_ca.cu", "pc_ca.cu", "mag_gos_cfar.cu",
            "chain_gos.cu", "wire_ca.cu", "chain_int.cu", "chain_int_gos.cu",
-           "int_split.cu", "rd_ca.cu", "rd_2d.cu", "halo.cu")
+           "int_mid.cu", "int_split.cu", "rd_ca.cu", "rd_2d.cu", "halo.cu")
 HEADERS = ("ca_cfar.cuh", "gos_cfar.cuh", "gos_rows.cuh", "int_front.cuh",
            "int_rows.cuh", "row_fft.cuh", "rd_front.cuh", "cfar_2d.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -3,21 +3,25 @@
 * Kernel F, ``chain_int``: integer FFT + magnitude (modes 0-2) + integer
   CA/GO/SO CFAR. Replaces
   ``rsp_chains_tpu/kernels/int_chain_pallas.py::fused_chain_int`` (:441,
-  ``pallas_call`` :512); CUDA source ``csrc/chain_int.cu`` with
-  ``csrc/int_front.cuh``. Three routes, chosen here by N alone: frames of
-  ``ROW_SIZES`` take the row plan in registers (``csrc/int_rows.cuh``,
-  entry ``rsp_chain_int_rows``), frames up to ``2**MAX_LOG2N`` one a block
-  (entry ``rsp_chain_int``), longer ones the split route; all give the same
-  integers.
+  ``pallas_call`` :512). Three routes, chosen here by N alone, all giving
+  the same integers: frames of ``ROW_SIZES`` (256-1024) take the row plan in
+  registers (``csrc/chain_int.cu`` with ``csrc/int_rows.cuh``, entry
+  ``rsp_chain_int_rows``, counted as ``chain_int``), frames of 2048 up to
+  ``2**MAX_LOG2N`` the mid-size route, longer ones the split route.
 * Kernel G, ``chain_int_gos``: the same front + an integer CA / GOS tail
   muxed by the algorithm register. Replaces
-  ``int_chain_pallas.py::fused_chain_int_gos`` (:552, ``pallas_call`` :622);
-  CUDA source ``csrc/chain_int_gos.cu`` with the selection of
-  ``csrc/gos_cfar.cuh``, on the same three routes as F: frames of
-  ``ROW_SIZES`` on F's row plan (entry ``rsp_chain_int_gos_rows``, the
-  selection over the block's frames of ``csrc/gos_rows.cuh``), frames up to
-  ``2**MAX_LOG2N`` one a block (entry ``rsp_chain_int_gos``), longer ones
-  the split route.
+  ``int_chain_pallas.py::fused_chain_int_gos`` (:552, ``pallas_call`` :622),
+  on the same three routes as F: frames of ``ROW_SIZES`` on F's row plan
+  (``csrc/chain_int_gos.cu``, entry ``rsp_chain_int_gos_rows``, the
+  selection over the block's frames of ``csrc/gos_rows.cuh``, counted as
+  ``chain_int_gos``), then the mid-size and the split routes.
+* The mid-size route of F and G for frames of 2048 ... 16384 (CUDA source
+  ``csrc/int_mid.cu``, entry ``rsp_int_mid``, counted as ``chain_int_mid``
+  and ``chain_int_gos_mid``): one launch; a block of 1024 threads holds
+  8192 cells in registers on the split route's body (1, 2 or 4 whole
+  frames, or at N = 16384 half a frame, two blocks of a thread-block
+  cluster a frame), stores each bin's magnitude in a row in shared memory
+  and runs F's run-sum CA or G's rank statistics over it.
 * The split route of F and G for frames of N > ``2**MAX_LOG2N`` (CUDA source
   ``csrc/int_split.cu``, entry ``rsp_int_split``, counted as
   ``chain_int_split`` and ``chain_int_gos_split``): head launches run the
@@ -61,9 +65,10 @@ from ..ops.cfar import CfarOutput, effective_algorithm, window_registers
 from .cfar import MAX_LOG2_W, PAD, check_window_bounds, entry, launch, takes_plain_path
 from .chain import FUSABLE_SIZES
 
-MAX_LOG2N = 14    # the frame-per-block kernels' bound: ~195 KiB of shared
-                  # memory at N = 16384, under the H100's 227 KiB a block;
-                  # longer frames take the split route (csrc/int_split.cu)
+MAX_LOG2N = 14    # the mid-size route's bound: at N = 16384 a frame fills
+                  # two blocks of 1024 threads, 8 cells a thread in
+                  # registers; longer frames take the split route
+                  # (csrc/int_split.cu)
 MAX_LOG2N_SPLIT = 30    # the split route's bound (int32 cell indices)
 OPS_CELLS = 512 * 1024  # cells a call of the plain versions (window stacks)
 ROW_SIZES = FUSABLE_SIZES   # the row-plan route of Kernels F and G
@@ -183,17 +188,18 @@ def chain_int_gos_reference(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
         x)
 
 
-def _int_kernel(name: str, symbol: str, x: C, rt: RuntimeConfig,
-                fft_cfg: FftConfig, cfar_cfg: CfarConfig) -> CfarOutput:
-    """Launch an integer whole-chain kernel over the CUDA frames ``x``."""
+def _int_kernel(name: str, symbol: str, x: C, regs: IntRegs,
+                fft_cfg: FftConfig) -> CfarOutput:
+    """Launch the integer whole-chain entry ``symbol`` (the row plan's or
+    the mid-size route's) over the CUDA frames ``x`` with the register
+    struct ``regs``, counted under ``name``."""
     n = x.shape[-1]
     xi = C(x.re.to(torch.int32).contiguous(), x.im.to(torch.int32).contiguous())
     expand, lsb = fft_masks(fft_cfg, n)
     fn = entry(symbol, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                ctypes.c_int, IntRegs)
     return launch(name, xi, fn, _int_twiddles(n, x.device).data_ptr(),
-                  n.bit_length() - 1, expand, lsb,
-                  int_registers(rt, cfar_cfg, n), dtype=torch.int32)
+                  n.bit_length() - 1, expand, lsb, regs, dtype=torch.int32)
 
 
 def _split_kernel(name: str, x: C, regs: IntRegs,
@@ -214,6 +220,21 @@ def _split_kernel(name: str, x: C, regs: IntRegs,
                   dtype=torch.int32)
 
 
+def _route(x: C, regs: IntRegs, fft_cfg: FftConfig,
+           gos: bool) -> CfarOutput:
+    """Kernel F (``gos`` False) or G over the CUDA frames ``x`` on the route
+    of their N: the row plan, the mid-size route or the split route."""
+    n = x.shape[-1]
+    suffix = "_gos" if gos else ""
+    if n in ROW_SIZES:
+        return _int_kernel(f"chain_int{suffix}",
+                           f"rsp_chain_int{suffix}_rows", x, regs, fft_cfg)
+    if n <= 1 << MAX_LOG2N:
+        return _int_kernel(f"chain_int{suffix}_mid", "rsp_int_mid", x, regs,
+                           fft_cfg)
+    return _split_kernel(f"chain_int{suffix}_split", x, regs, fft_cfg)
+
+
 def chain_int(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
               cfar_cfg: CfarConfig) -> CfarOutput:
     """Bit-true integer FFT + magnitude (modes 0-2) + integer CA/GO/SO CFAR
@@ -225,12 +246,9 @@ def chain_int(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
     _check_operands("chain_int", n, rt, fft_cfg, cfar_cfg, False)
     if takes_plain_path(xp, "chain_int"):
         return chain_int_reference(xp, rt, fft_cfg, cfar_cfg)
-    if n > 1 << MAX_LOG2N:
-        regs = int_registers(rt, cfar_cfg, n)
-        regs.algorithm = 0
-        return _split_kernel("chain_int_split", xp, regs, fft_cfg)
-    symbol = "rsp_chain_int_rows" if n in ROW_SIZES else "rsp_chain_int"
-    return _int_kernel("chain_int", symbol, xp, rt, fft_cfg, cfar_cfg)
+    regs = int_registers(rt, cfar_cfg, n)
+    regs.algorithm = 0
+    return _route(xp, regs, fft_cfg, False)
 
 
 def chain_int_gos(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
@@ -244,12 +262,7 @@ def chain_int_gos(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
     _check_operands("chain_int_gos", n, rt, fft_cfg, cfar_cfg, True)
     if takes_plain_path(xp, "chain_int_gos"):
         return chain_int_gos_reference(xp, rt, fft_cfg, cfar_cfg)
-    if n > 1 << MAX_LOG2N:
-        return _split_kernel("chain_int_gos_split", xp,
-                             int_registers(rt, cfar_cfg, n), fft_cfg)
-    symbol = ("rsp_chain_int_gos_rows" if n in ROW_SIZES
-              else "rsp_chain_int_gos")
-    return _int_kernel("chain_int_gos", symbol, xp, rt, fft_cfg, cfar_cfg)
+    return _route(xp, int_registers(rt, cfar_cfg, n), fft_cfg, True)
 
 
 def int_ops_chain(x: CLike, rt: RuntimeConfig, cfg: ChainConfig) -> CfarOutput:

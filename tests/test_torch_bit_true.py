@@ -5,8 +5,9 @@ versions of Kernels F and G against the JAX integer kernels in interpret
 mode, the bit-true chain stage's routes, and the bit-true presets.
 
 Bar: every integer equal, every peak equal. Inputs are seeded numpy arrays
-of 16-bit integers, N = 256, at most 8 frames; beyond the frame-per-block
-kernels' bound, N = 32768 and 65536, two frames."""
+of 16-bit integers, N = 256, at most 8 frames; beyond the one-launch
+routes' bound (N = 16384), N = 32768 and 65536, two frames. (The test
+names' "frame-per-block bound" is that bound, N = 16384.)"""
 
 import dataclasses
 import functools
@@ -379,8 +380,10 @@ GOS_REGS_BIG = dict(cfar_algorithm=1, index_lagg=3, index_lead=7, **W8)
 ])
 def test_bit_true_chain_takes_the_kernels_at_their_frame_bound(
         variant, regs, route, monkeypatch):
-    """At N = 16384, the kernels' bound, a kernel's register point takes its
-    kernel (here its plain version), equal to the integer ops."""
+    """At N = 16384, the bound of the one-launch routes (on the card the
+    mid-size route of ``csrc/int_mid.cu``, a frame a cluster of two
+    blocks), a kernel's register point takes its kernel (here its plain
+    version), equal to the integer ops."""
     n = 1 << TK.MAX_LOG2N
     cfg = _big_chain(variant, n)
     taken = _spy_routes(monkeypatch)
@@ -393,8 +396,8 @@ def test_bit_true_chain_takes_the_kernels_at_their_frame_bound(
     assert torch.equal(got.peaks, want.peaks)
 
 
-# register points beyond the frame-per-block kernels' bound, each with the
-# route it must take: (variant, registers, route)
+# register points beyond the one-launch routes' bound (N = 16384), each with
+# the route it must take: (variant, registers, route)
 BEYOND = [
     (R.CfarVariant.CA, W8, "chain_int"),
     (R.CfarVariant.CA, dict(W8, cfar_mode=1, peak_grouping=1), "chain_int"),

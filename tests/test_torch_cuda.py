@@ -621,6 +621,12 @@ INT_FFTS = [dict(), dict(expand=(0, 2, 3, 5, 6, 7, 8)), dict(lsb=(1, 4)),
 INT_SIZES = [256, 512, 1024, 2048, 4096, 8192, 16384]
 
 
+def _int_launch(n, gos=False):
+    """The launch name of Kernel F (or G) at frames of n: the row plan up to
+    1024, the mid-size route (csrc/int_mid.cu) up to 16384."""
+    return f"chain_int{'_gos' if gos else ''}{'' if n <= 1024 else '_mid'}"
+
+
 @pytest.mark.parametrize("n", INT_SIZES)
 @pytest.mark.parametrize("regs", INT_REGS)
 @pytest.mark.parametrize("fft", INT_FFTS)
@@ -629,16 +635,16 @@ def test_chain_int_matches_reference(dev, n, regs, fft):
     fft_cfg = _fft(n, **fft)
     x = _int_iq((9, n), dev, seed=n)
     rt = rsp.RuntimeConfig.make(**{"fft_size": n, **regs})
-    before = _build.LAUNCHES["chain_int"]
+    before = _build.LAUNCHES[_int_launch(n)]
     got = kint.chain_int(x, rt, fft_cfg, cfg.cfar)
-    assert _build.LAUNCHES["chain_int"] == before + 1
+    assert _build.LAUNCHES[_int_launch(n)] == before + 1
     _assert_exact(got, kint.chain_int_reference(x, rt, fft_cfg, cfg.cfar))
 
 
 @pytest.mark.parametrize("n", INT_SIZES)
 def test_chain_int_routes_by_frame_size(dev, n, monkeypatch):
-    """Frames of 256-1024 take the row-plan entry, longer ones the
-    frame-per-block entry; full-scale frames through four expanding stages
+    """Frames of 256-1024 take the row-plan entry, 2048-16384 the mid-size
+    entry (csrc/int_mid.cu); full-scale frames through four expanding stages
     saturate the square sums, exact on both routes."""
     symbols = []
     kernel = kint._int_kernel
@@ -654,7 +660,7 @@ def test_chain_int_routes_by_frame_size(dev, n, monkeypatch):
     rt = rsp.RuntimeConfig.make(fft_size=n, mag_mode=1, div_sum=0,
                                 peak_grouping=1)
     got = kint.chain_int(x, rt, fft_cfg, cfg.cfar)
-    assert symbols == ["rsp_chain_int_rows" if n <= 1024 else "rsp_chain_int"]
+    assert symbols == ["rsp_chain_int_rows" if n <= 1024 else "rsp_int_mid"]
     want = kint.chain_int_reference(x, rt, fft_cfg, cfg.cfar)
     _assert_exact(got, want)
     assert bool((want.threshold < 0).any())   # the sums and products wrap
@@ -680,9 +686,9 @@ def test_chain_int_gos_matches_reference(dev, n, regs, fft):
     fft_cfg = _fft(n, **fft)
     x = _int_iq((5, n), dev, seed=n + 1)
     rt = rsp.RuntimeConfig.make(**{"fft_size": n, **GOS, **regs})
-    before = _build.LAUNCHES["chain_int_gos"]
+    before = _build.LAUNCHES[_int_launch(n, True)]
     got = kint.chain_int_gos(x, rt, fft_cfg, cfg.cfar)
-    assert _build.LAUNCHES["chain_int_gos"] == before + 1
+    assert _build.LAUNCHES[_int_launch(n, True)] == before + 1
     _assert_exact(got, kint.chain_int_gos_reference(x, rt, fft_cfg, cfg.cfar))
 
 
@@ -728,9 +734,9 @@ def test_chain_int_gos_is_exact_at_selection_edges(dev, n, case):
     cfg = _gos_cfg(n)
     fft_cfg = _fft(n, expand=tuple(range(expanding)))
     rt = rsp.RuntimeConfig.make(**{"fft_size": n, **GOS, **regs})
-    before = _build.LAUNCHES["chain_int_gos"]
+    before = _build.LAUNCHES[_int_launch(n, True)]
     got = kint.chain_int_gos(x, rt, fft_cfg, cfg.cfar)
-    assert _build.LAUNCHES["chain_int_gos"] == before + 1
+    assert _build.LAUNCHES[_int_launch(n, True)] == before + 1
     _assert_exact(got, kint.chain_int_gos_reference(x, rt, fft_cfg,
                                                     cfg.cfar))
 
@@ -889,6 +895,49 @@ def test_new_wrappers_refuse_bad_operands(dev):
         kint.chain_int_gos(x, rt.merge_regs(cfar_mode=3), gcfg.fft, gcfg.cfar)
     with pytest.raises(ValueError, match="at most 7 expanding"):
         kint.chain_int(x, rt, rsp.FftConfig(expand_logic=(1,) * 10), cfg.cfar)
+
+
+# ---- Kernels F and G at N = 2048-16384: the mid-size route (int_mid.cu) ----
+
+@pytest.mark.parametrize("n", [2048, 4096, 8192, 16384])
+@pytest.mark.parametrize("frames", [1, 3, 6])
+@pytest.mark.parametrize("fft", [dict(), dict(expand=(0, 1, 9), lsb=(2,)),
+                                 dict(lsb=(0, 5)),
+                                 dict(expand=tuple(range(7)))])
+def test_mid_route_is_exact_over_part_filled_blocks_and_stage_flags(
+        dev, n, frames, fft):
+    """Frame counts that leave the last block part filled (4 frames a block
+    at 2048, 2 at 4096), stage 0 expanding or keeping the LSB (at 16384 the
+    stage each block of the cluster runs on both halves), full-scale frames;
+    F, G and G's algorithm 0 through ``fft_mag_cfar_chain``, one launch
+    each, exact against the integer ops."""
+    x = _int_iq((frames, n), dev, seed=n % 83 + frames, amp=32767)
+    for variant, regs, kernel in (
+            (rsp.CfarVariant.CA, dict(cfar_algorithm=0, peak_grouping=1,
+                                      cfar_fft_size=n - 100), "chain_int_mid"),
+            (rsp.CfarVariant.GOSCA, dict(), "chain_int_gos_mid"),
+            (rsp.CfarVariant.GOSCA, dict(cfar_algorithm=0, cfar_mode=1),
+             "chain_int_mid")):
+        cfg = dataclasses.replace(_split_cfg(variant, n), fft=_fft(n, **fft))
+        chain = rsp.fft_mag_cfar_chain(cfg)
+        rt = rsp.RuntimeConfig.make(**{"fft_size": n, **GOS, **regs})
+        before = dict(_build.LAUNCHES)
+        got = chain(x, rt)
+        after = dict(_build.LAUNCHES)
+        assert {k: after[k] - before.get(k, 0) for k in after
+                if after[k] != before.get(k, 0)} == {kernel: 1}
+        _assert_exact(got, kint.int_ops_chain(x, rt, cfg))
+
+
+def test_mid_route_register_writes_build_once(dev):
+    for n in (2048, 16384):
+        chain = rsp.fft_mag_cfar_chain(_split_cfg(rsp.CfarVariant.GOSCA, n))
+        x = _int_iq((2, n), dev)
+        for regs in INT_GOS_REGS + [dict(cfar_algorithm=0)]:
+            chain(x, rsp.RuntimeConfig.make(**{"fft_size": n, **GOS,
+                                               **regs}))
+    torch.cuda.synchronize()
+    assert _build.BUILDS == 1
 
 
 # ---- Kernels F and G beyond N = 16384: the split route (int_split.cu) ----
