@@ -39,7 +39,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the split route of Kernels F and G (``csrc/int_split.cu``): the
    headline's samples as 512 x 32768, 256 x 65536 and 1 x 2^18 frames and one frame of 2^20,
    F at 512 x 32768 and G at 1 x 2^18 with expanding and keepLSB stages,
-   then both integer register sweeps at N = 32768, and
+   then both integer register sweeps at N = 32768; then holds the rank
+   selection where it runs two windows a warp (``pair_edges``: w 1, 2, 8,
+   16, 32 at the ranks 0 and w - 1, odd frame counts) against the plain
+   versions, outside the launch counts: Kernel C at 3 x 1024 and 5 x 1280,
+   whole frames and an active range cut inside a tile, at the bench bar
+   (exactly on integer spectra), and G's mid-size route at N = 2048 ...
+   16384 and its split route at 32768 exactly, the active range ending at
+   a run boundary and the square sums saturated; then
    ``rx_fft_mag_cfar_tx_chain`` for the float CA and the bit-true
    elaborations; it checks the three-tone detections of the float and
    bit-true chains; then ``range_doppler_chain`` (CA at the full batch, GOSCA
@@ -164,6 +171,7 @@ alone).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import re
@@ -197,6 +205,8 @@ GOS_REGS = dict(HEADLINE, cfar_algorithm=1, index_lagg=16, index_lead=16)
 GOS_CHUNK = 8  # channels per call of a plain GOS version
 # (window, guard) at which Kernels C and D and their selection are timed
 SEL_WINDOWS = [(8, 4), (32, 4), (64, 8)]
+# the windows of the paired rank selection's edge points (pair_edges)
+PAIR_WINDOWS = (1, 2, 8, 16, 32)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, each way
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
@@ -671,6 +681,153 @@ def mid_label(name: str, frames: int, n: int) -> str:
     ``frames`` x ``n``, one of MID_SHAPES."""
     regs = "GOS" if name == "chain_int_gos" else "headline"
     return f"{name} at {frames}x{n}, {regs} registers"
+
+
+def pair_registers(n: int, w: int, rank: int, **kw):
+    """GOS_REGS at FFT size n and window w (guard max(1, w // 8); w = 1 with
+    guard 0 written past make()'s rules), the lag rank ``rank`` (0 or w - 1)
+    and the lead rank its mirror, ``kw`` written over them."""
+    import rsp_chains_tpu_torch as rsp
+
+    mw = max(w, 2)
+    rt = rsp.RuntimeConfig.make(**{
+        **GOS_REGS, "fft_size": n, "ref_window_size": mw,
+        "guard_window_size": max(1, mw // 8), "div_sum": mw.bit_length() - 1,
+        "index_lagg": min(rank, mw - 1), "index_lead": min(w - 1 - rank,
+                                                           mw - 1), **kw})
+    if w == 1:
+        rt = dataclasses.replace(rt, ref_window_size=1, guard_window_size=0,
+                                 index_lagg=0, index_lead=0)
+    return rt
+
+
+def run_boundary(n: int, w: int, g: int) -> int:
+    """The CFAR size whose first inactive cell starts the fourth run of
+    window starts of the paired selection (csrc/gos_cfar.cuh): frame pairs
+    over a block's rows at N = 2048 and 4096, run pairs over its one row at
+    8192 and over each half-frame at 16384 (the second), run pairs over the
+    split tail's tiles of 4096 (the second)."""
+    if n > 16384:
+        span, runs, org = 4096, 16, 4096
+    elif n >= 8192:
+        span, runs, org = 8192, 64, 8192 if n == 16384 else 0
+    else:
+        span, runs, org = n, 32 // (8192 // n // 2), 0
+    per = -(-(span + 2 * g + w + 1) // runs)
+    if n >= 8192:
+        per |= 1
+    return org + 3 * per - g - w
+
+
+def pair_edges(dev, card: str) -> int:
+    """Kernels C and G where the rank selection runs two windows a warp (w
+    <= 32): C (frame pairs) at 3 x 1024 and 5 x 1280 (tiles of 1024 and
+    256), G's mid-size route at N = 2048 ... 16384 (frame pairs, then run
+    pairs) and its split route at 32768 (run pairs in the tail), each at the
+    windows of PAIR_WINDOWS and the ranks 0 and w - 1, odd frame counts
+    (the last block's dead half): C on Gaussian spectra at the bench bar and
+    on integer spectra under SQR exactly, the whole frame and an active
+    range cut inside a tile (the magnitude given); G exactly, with the
+    active range ending at a run boundary and on full-scale frames through
+    seven expanding stages (square sums saturated at INT32_MAX). Raises on
+    any miss; returns the points checked. These calls compare the kernels
+    with their plain versions; no main path runs here."""
+    import torch
+
+    import rsp_chains_tpu_torch as rsp
+    from rsp_chains_tpu_torch.kernels import _build
+    from rsp_chains_tpu_torch.kernels import cfar as kcfar
+    from rsp_chains_tpu_torch.kernels import int_chain as kint
+    from rsp_chains_tpu_torch.ops.bit_true import fft_int_op, mag_int_op
+    from rsp_chains_tpu_torch.ops.logmag import logmag
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    ccfg = rsp.CfarConfig()
+    checked = 0
+    for frames, n in ((3, 1024), (5, 1280)):
+        gauss = rsp.C(*(torch.randn(frames, n, device=dev, generator=gen)
+                        for _ in range(2)))
+        ints = rsp.C(*(torch.randint(-3, 4, (frames, n), device=dev,
+                                     generator=gen).float()
+                       for _ in range(2)))
+        ints.re[:, 40] += 25.0
+        for w in PAIR_WINDOWS:
+            for rank in (0, w - 1):
+                for x, mag_mode in ((gauss, 2), (ints, 1)):
+                    rt = dataclasses.replace(
+                        pair_registers(1024, w, rank, mag_mode=mag_mode),
+                        cfar_fft_size=n)
+                    for cut in (False, True):
+                        kw = (dict(active_lo=37, active_hi=n - 101,
+                                   mag_given=True) if cut else {})
+                        v = logmag(x, mag_mode) if cut else x
+                        before = collections.Counter(_build.LAUNCHES)
+                        got = kcfar.mag_gos_cfar(v, rt, ccfg, **kw)
+                        if collections.Counter(_build.LAUNCHES) - before != \
+                                collections.Counter({"mag_gos_cfar": 1}):
+                            raise AssertionError(
+                                f"mag_gos_cfar {frames}x{n} w {w} did not "
+                                f"launch")
+                        want = kcfar.mag_gos_cfar_reference(v, rt, ccfg,
+                                                            **kw)
+                        torch.cuda.synchronize()
+                        d = (got.threshold - want.threshold).abs().max()
+                        rel = d.item() / want.threshold.abs().max().item()
+                        flips = int((got.peaks != want.peaks).sum().item())
+                        if (mag_mode == 1 and (rel != 0 or flips)) or not (
+                                rel < REL_BAR and flips <= FLIP_BAR
+                                * want.peaks.numel()):
+                            raise AssertionError(
+                                f"mag_gos_cfar {frames}x{n} w {w} rank "
+                                f"{rank} mag_mode {mag_mode} cut {cut}: rel "
+                                f"dthr {rel:.3e}, {flips} flips")
+                        checked += 1
+    print(f"two windows a warp, mag_gos_cfar: {checked} points at 3x1024 and "
+          f"5x1280, w {PAIR_WINDOWS}, ranks 0 and w - 1, whole and cut "
+          f"frames, within the bench bar (exact on integer spectra); card "
+          f"{card}")
+    g_checked = 0
+    for n, frames in ((2048, 3), (4096, 3), (8192, 3), (16384, 3),
+                      (32768, 2)):
+        cfg = at_size(rsp.ChainConfig(), n).cfar
+        full = rsp.C(*(32767 * (2 * torch.randint(
+            0, 2, (frames, n), device=dev, generator=gen,
+            dtype=torch.int32) - 1) for _ in range(2)))
+        rand = rsp.C(*(torch.randint(-20000, 20001, (frames, n), device=dev,
+                                     generator=gen, dtype=torch.int32)
+                       for _ in range(2)))
+        seven = rsp.FftConfig(max_size=n, expand_logic=tuple(
+            int(s < 7) for s in range(n.bit_length() - 1)))
+        plain_fft = rsp.FftConfig(max_size=n)
+        if not bool((mag_int_op(fft_int_op(full, None, seven), 1)
+                     == 2**31 - 1).any()):
+            raise AssertionError(f"N {n}: no square sum saturated")
+        name = "chain_int_gos_mid" if n <= 16384 else "chain_int_gos_split"
+        for w in PAIR_WINDOWS:
+            g = 0 if w == 1 else max(1, w // 8)
+            for rank in (0, w - 1):
+                for case, x, fft_n, kw in (
+                        ("cut at a run boundary", rand, plain_fft,
+                         dict(cfar_fft_size=run_boundary(n, w, g))),
+                        ("SQR saturated", full, seven, dict(mag_mode=1))):
+                    rt = pair_registers(n, w, rank, **kw)
+                    before = collections.Counter(_build.LAUNCHES)
+                    got = kint.chain_int_gos(x, rt, fft_n, cfg)
+                    if collections.Counter(_build.LAUNCHES) - before != \
+                            collections.Counter({name: 1}):
+                        raise AssertionError(f"{name} N {n} did not launch")
+                    want = kint.chain_int_gos_reference(x, rt, fft_n, cfg)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got.threshold, want.threshold)
+                            and torch.equal(got.peaks, want.peaks)):
+                        raise AssertionError(
+                            f"{name} {frames}x{n} w {w} rank {rank} "
+                            f"[{case}]: not exact")
+                    g_checked += 1
+        print(f"two windows a warp, {name} at {frames}x{n}: w {PAIR_WINDOWS}, "
+              f"ranks 0 and w - 1, cut at a run boundary and SQR saturated: "
+              f"exact; card {card}")
+    return checked + g_checked
 
 
 def tail_times(dev, profiles: bool = False) -> dict:
@@ -2719,6 +2876,9 @@ def main() -> int:
            for name, kw, raw, kernel in INT_GOS_SWEEP],
         lambda rt_s, top, plain_top, frames: top(frames, rt_s), split_check)
 
+    # ---- two windows a warp: the paired selection's edge points ----
+    pair_edges(dev, card)
+
     # ---- the wire tops ----
     wchain = rsp.rx_fft_mag_cfar_tx_chain(cfg)
     wplain = rsp.rx_fft_mag_cfar_tx_chain(plain_cfg)
@@ -3264,14 +3424,19 @@ def main() -> int:
     # each kernel at the GOS registers over the windows of SEL_WINDOWS, and
     # at each window with the algorithm register at 0, where the CA sums
     # take the selection's place (tail_times, on the card alone): the
-    # difference is the selection's time
+    # difference is the selection's time. Kernel C at w <= 32 runs its
+    # selection two frames a block and its CA sums one frame a block (two
+    # instantiations), so there the difference also holds the change of
+    # block layout and occupancy.
     for w, g in SEL_WINDOWS:
         for name in ("chain_gos", "mag_gos_cfar", "chain_int_gos"):
             ms1, ms0 = (tails[sel_label(name, w, g, a)][1] for a in (1, 0))
+            what = ("the difference (two frames a block against one)"
+                    if name == "mag_gos_cfar" and w <= 32 else "the selection")
             print(f"{name} at w {w} g {g} ranks {w // 2}/{w // 2}, "
                   f"{'x'.join(map(str, SHAPE))}, on the card alone: "
-                  f"{ms1:.4f} ms; algorithm 0 (CA sums) {ms0:.4f} ms; the "
-                  f"selection {ms1 - ms0:.4f} ms; card {card}")
+                  f"{ms1:.4f} ms; algorithm 0 (CA sums) {ms0:.4f} ms; "
+                  f"{what} {ms1 - ms0:.4f} ms; card {card}")
     for name, (regs, st, ld, stack) in ptxas_report(
             _build.build_log(), ("rsp_chain_ca_rows_kernel",
                                  "rsp_wire_ca_rows_kernel",

@@ -11,9 +11,9 @@
 //
 // The TPU sorts every window with a sliding odd-even merge ladder of lane
 // rotations. Here the selection is the warp-resident sliding sorted window
-// of Kernels C and D (gos_cfar.cuh, `rsp_gos_ranks`) on int32: each warp
-// keeps its window's active cells sorted in registers, INT32_MAX under signed
-// compares past the nv active ones (the order and padding of the integer
+// of Kernels C and D (gos_cfar.cuh) on int32: each warp (half-warp at w <=
+// 32) keeps its window's active cells sorted in registers, INT32_MAX under
+// signed compares past the nv active ones (the order and padding of the integer
 // ops, which sort an invalid cell as int32 max), and the lane holding each
 // rank stores it once per window start into shared memory, read by the lag
 // side of one cell and the lead side of another. Compares only: the result

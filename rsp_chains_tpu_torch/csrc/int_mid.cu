@@ -53,11 +53,16 @@
 //   stores.
 // * Tail, G. The rows copied by cell, without the padding (the
 //   selection's loads then take no address arithmetic), then the rank
-//   selection of gos_cfar.cuh
-//   (`rsp_gos_ranks` on int32, INT32_MAX past the active cells), the
-//   block's 32 warps split evenly among its rows, each warp a run of window
-//   starts; the copies and the two statistic rows take the dead planes'
-//   place; then a cell a thread, stores coalesced.
+//   selection of gos_cfar.cuh on int32, INT32_MAX past the active cells. At
+//   w <= 32 two windows a warp: frame pairs where the block holds 4 or 2
+//   rows (`rsp_gos_row_pairs`, the pairs' starts cut into 32 equal runs),
+//   run pairs over its one row at N = 8192 and 16384 (`rsp_gos_stats`, two
+//   runs a warp an odd number of starts apart), whose chunks' loads ahead
+//   of the slides fit the 64 registers of 1024 threads without a spill. At
+//   w = 64 a window a warp (`rsp_gos_ranks`). The
+//   copies and the two statistic rows a row, kStatP words apart (an odd
+//   multiple of 16, so a frame pair's two words lie in different banks),
+//   take the dead planes' place; then a cell a thread, stores coalesced.
 //
 // Bound on the H100: the function moves 13 bytes a sample (0.0651 ms at
 // 2^24 samples) and its butterflies cost 8.5 L integer operations a sample
@@ -65,7 +70,8 @@
 // device memory (at L = 14 each half is read twice, the second time
 // mostly from L2) and runs about 160 instructions a cell in the body,
 // which its time follows (the split route's body took 0.1705 ms over 2^24
-// cells); G adds the selection's ~20 warp instructions a window start.
+// cells); G adds the selection's, about three shared-memory or shuffle
+// operations a window start at w <= 32.
 // One block of 1024 threads an SM: a block's loads, FFT, tail and stores
 // do not overlap another block's.
 #include <cooperative_groups.h>
@@ -91,8 +97,12 @@ struct RspMidPlan {
   static constexpr int kSpan = kPair ? 1 << RSP_SPLIT_LOG2 : 1 << kLog2N;
   static constexpr int kRow = rsp_mag_floats(kSpan);     // a magnitude row
   static constexpr int kStat = kSpan + 2 * RSP_PAD;      // a row by cell
+  // G's rows by cell and statistic rows lie kStatP apart, an odd multiple
+  // of 16 words: a frame pair's two words of one instruction fall in
+  // different banks
+  static constexpr int kStatP = kStat + 16;
   static constexpr int kPlanes = 2 << RSP_SPLIT_LOG2;
-  static constexpr int kGos = 3 * kRows * kStat;
+  static constexpr int kGos = 3 * kRows * kStatP;
   static constexpr int kFront = kPlanes > kGos ? kPlanes : kGos;
   static constexpr int kWords = kFront + kRows * kRow;
 };
@@ -222,36 +232,32 @@ rsp_int_mid_kernel(const int* __restrict__ re, const int* __restrict__ im,
     return;
   }
 
-  // G's rank statistics: st0 / st1 of row f at ismem + 2 f kStat, by window
-  // start (start s: the row cells s .. s + w - 1), over the active cells
-  // [0, hi) of the frame, from the rows copied by cell to `cells` (past the
-  // statistic rows; the planes are dead), so the selection's loads take no
-  // address arithmetic
-  int* cells = ismem + 2 * P::kRows * P::kStat;
-  for (int c = m; c < P::kRows * P::kStat; c += T)
-    cells[c] = rows[(c / P::kStat) * P::kRow + rsp_mag_slot(c % P::kStat)];
+  // G's rank statistics: the lag and lead ranks of row f by window start
+  // (start s: the row cells s .. s + w - 1) at st0(f) and st1(f), over the
+  // active cells [0, hi) of the frame, from the rows copied by cell to
+  // cells(f) (the planes are dead), so the selection's loads take no address
+  // arithmetic. Two windows a warp at w <= 32: frame pairs where the block
+  // holds 4 or 2 rows, run pairs over its one row at N = 8192 and 16384.
+  const auto st0 = [&](int f) { return ismem + f * P::kStatP; };
+  const auto st1 = [&](int f) { return ismem + (P::kRows + f) * P::kStatP; };
+  const auto cells = [&](int f) {
+    return ismem + (2 * P::kRows + f) * P::kStatP;
+  };
+  for (int c = m; c < P::kRows * P::kStat; c += T) {
+    const int f = c / P::kStat, j = c - f * P::kStat;
+    cells(f)[j] = rows[f * P::kRow + rsp_mag_slot(j)];
+  }
   __syncthreads();
-  constexpr int kWpr = T / 32 / P::kRows;  // warps a row
   {
-    const int warp = m >> 5, f = warp / kWpr;
-    if (f < live) {
-      const int s_lo = RSP_PAD - g - w, s_hi = RSP_PAD + S + g + 1;
-      const int per = (s_hi - s_lo + kWpr - 1) / kWpr;
-      const int s_a = s_lo + (warp % kWpr) * per;
-      const int s_b = min(s_a + per, s_hi);
-      int* st0 = ismem + 2 * f * P::kStat;
-      const RspStartRows<int> rws{cells + f * P::kStat, st0,
-                                  st0 + P::kStat};
-      const int alo = RSP_PAD - org, ahi = RSP_PAD - org + hi;
-      if (s_a < s_b) {
-        if (w > 32)
-          rsp_gos_ranks<true, int>(rws, s_a, s_b, w, alo, ahi, r.rank_lagg,
-                                   r.rank_lead);
-        else
-          rsp_gos_ranks<false, int>(rws, s_a, s_b, w, alo, ahi, r.rank_lagg,
-                                    r.rank_lead);
-      }
-    }
+    const int s_lo = RSP_PAD - g - w, s_hi = RSP_PAD + S + g + 1;
+    const int alo = RSP_PAD - org, ahi = RSP_PAD - org + hi;
+    if constexpr (P::kRows == 1)
+      rsp_gos_stats<int>(cells(0), st0(0), st1(0), s_lo, s_hi, w, alo, ahi,
+                         r.rank_lagg, r.rank_lead);
+    else
+      rsp_gos_row_pairs<int>(
+          [&](int f) { return RspStartRows<int>{cells(f), st0(f), st1(f)}; },
+          live, s_lo, s_hi - s_lo, w, alo, ahi, r.rank_lagg, r.rank_lead);
   }
   __syncthreads();
   for (int c = m; c < S * P::kRows; c += T) {
@@ -263,13 +269,12 @@ rsp_int_mid_kernel(const int* __restrict__ re, const int* __restrict__ im,
       peaks[o] = 0;
       continue;
     }
-    const int* st0 = ismem + 2 * f * P::kStat;
     const int k = RSP_PAD + j;
     int t;
     uint8_t pk;
-    rsp_int_thr_peak(cells + f * P::kStat + k, i,
-                     rsp_int_combine(r.cfar_mode, st0[k - g - w],
-                                     st0[P::kStat + k + g + 1]),
+    rsp_int_thr_peak(cells(f) + k, i,
+                     rsp_int_combine(r.cfar_mode, st0(f)[k - g - w],
+                                     st1(f)[k + g + 1]),
                      r, t, pk);
     thr[o] = t;
     peaks[o] = pk;

@@ -55,7 +55,9 @@
 //   natural place in shared memory. Then F's CA by run sums
 //   (int_rows.cuh `rsp_int_ca_runs`: 16 cells a thread, wrapping uint32_t
 //   sums, exact) or, with the algorithm register at 1, G's rank statistics
-//   (`rsp_gos_stats` on int32, INT32_MAX past the active cells), then
+//   (`rsp_gos_stats` on int32, INT32_MAX past the active cells: at w <= 32
+//   run pairs, two runs of the tile's window starts a warp an odd number
+//   apart, one a half-warp; at w = 64 a run a warp), then
 //   `rsp_int_combine` and `rsp_int_thr_peak`; active cells [0, n_active) as
 //   in F and G.
 //
@@ -237,8 +239,9 @@ rsp_int_split_tail_kernel(const int* __restrict__ mag, int* __restrict__ thr,
   const int w = 1 << r.log2w, g = r.guard, hi = r.n_active;
   // st0[k] / st1[k]: the lag / lead rank statistic of the window of row
   // cells k .. k + w - 1 over the active cells [0, hi)
-  rsp_gos_stats(row, st0, st1, RSP_PAD - g - w, RSP_PAD + T + g + 1, w,
-                RSP_PAD - ts, RSP_PAD - ts + hi, r.rank_lagg, r.rank_lead);
+  rsp_gos_stats<int>(row, st0, st1, RSP_PAD - g - w, RSP_PAD + T + g + 1, w,
+                     RSP_PAD - ts, RSP_PAD - ts + hi, r.rank_lagg,
+                     r.rank_lead);
   __syncthreads();
   for (int j = threadIdx.x; j < T; j += blockDim.x) {
     const int i = ts + j;

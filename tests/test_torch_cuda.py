@@ -33,6 +33,7 @@ from rsp_chains_tpu_torch.kernels import int_chain as kint
 from rsp_chains_tpu_torch.kernels import rd as krd
 from rsp_chains_tpu_torch.ops.fft import fft_op
 from rsp_chains_tpu_torch.ops.logmag import logmag
+from rsp_chains_tpu_torch.ops import bit_true as TB
 from rsp_chains_tpu_torch.ops import nco as tnco
 from rsp_chains_tpu_torch.ops.matched_filter import overlap_save_fir
 
@@ -2072,3 +2073,104 @@ def test_a_mid_stream_poke_lands_whole_at_one_cpi_boundary(dev):
     switch = side.index(True)
     assert side == [False] * switch + [True] * (16 - switch) and switch <= 8
     assert _build.BUILDS == 1
+
+
+# ---- two windows a warp: C, G's mid-size route and G's split tail ----
+
+# the windows the paired selection takes (w <= 32) and the ranks at its
+# edges: the lag rank k and the lead rank w - 1 - k
+PAIR_WINDOWS = [1, 2, 8, 16, 32]
+PAIR_RANKS = ["0", "w - 1"]
+
+
+def _pair_rt(n, w, rank, **regs):
+    """GOS registers at window w (guard max(1, w // 8); w = 1 with guard 0
+    written raw past make()'s rules), the lag rank 0 or w - 1 and the lead
+    rank its mirror."""
+    k = 0 if rank == "0" else w - 1
+    make_w = max(w, 2)
+    rt = rsp.RuntimeConfig.make(**{
+        "fft_size": n, **GOS, "ref_window_size": make_w,
+        "guard_window_size": max(1, make_w // 8),
+        "index_lagg": min(k, make_w - 1),
+        "index_lead": min(w - 1 - k, make_w - 1), **regs})
+    if w == 1:
+        rt = dataclasses.replace(rt, ref_window_size=1, guard_window_size=0,
+                                 index_lagg=0, index_lead=0)
+    return rt
+
+
+def _run_cut(n, w, g, kernel):
+    """An active range ending at a run boundary of the paired schedule: the
+    active cell count whose first inactive cell is the first cell of the
+    fourth run of window starts (frame pairs: csrc/gos_cfar.cuh
+    rsp_gos_row_pairs; run pairs: rsp_gos_stats) of the first row at 2048
+    - 8192, the second half-frame at 16384, the second tile of the split
+    tail."""
+    if kernel == "split":           # tiles of 4096, 8 warps, run pairs
+        span, base, runs = 4096, 4096, 16
+    elif n >= 8192:                  # one row of 8192 a block, 32 warps
+        span, base, runs = 8192, 8192 if n == 16384 else 0, 64
+    else:                            # 4 or 2 rows, frame pairs
+        span, base, runs = n, 0, 32 // (8192 // n // 2)
+    length = span + 2 * g + w + 1
+    per = -(-length // runs)
+    if kernel == "split" or n >= 8192:
+        per |= 1
+    return base + 3 * per - g - w
+
+
+@pytest.mark.parametrize("n, frames", [(256, 1), (512, 3), (1024, 4),
+                                       (1280, 5)])
+@pytest.mark.parametrize("w", PAIR_WINDOWS)
+@pytest.mark.parametrize("rank", PAIR_RANKS)
+@pytest.mark.parametrize("cut", ["frame", "inside a tile, given"])
+def test_mag_gos_cfar_frame_pairs_are_exact_at_their_edges(dev, n, frames, w,
+                                                           rank, cut):
+    """Kernel C, a range tile of two frames a block: an odd frame count
+    leaves the last block a dead half; integer spectra under SQR make every
+    statistic exact and every window full of ties."""
+    cfg = _gos_cfg(1024)
+    spec = _int_spec((frames, n), dev, seed=31 * w + n + frames)
+    rt = dataclasses.replace(_pair_rt(1024, w, rank, mag_mode=1),
+                             cfar_fft_size=n)
+    x, kw = spec, {}
+    if cut != "frame":               # the range ends inside the last tile
+        x = logmag(spec, rt.mag_mode)
+        kw = dict(active_lo=37, active_hi=n - 101, mag_given=True)
+    before = dict(_build.LAUNCHES)
+    got = kcfar.mag_gos_cfar(x, rt, cfg.cfar, **kw)
+    assert _took(before) == {"mag_gos_cfar": 1}
+    _assert_equal(got, kcfar.mag_gos_cfar_reference(x, rt, cfg.cfar, **kw))
+
+
+@pytest.mark.parametrize("n, frames", [(2048, 3), (4096, 3), (8192, 2),
+                                       (16384, 1), (32768, 1)])
+@pytest.mark.parametrize("w", PAIR_WINDOWS)
+@pytest.mark.parametrize("rank", PAIR_RANKS)
+@pytest.mark.parametrize("case", ["cut at a run boundary", "SQR saturated"])
+def test_chain_int_gos_pairs_are_exact_at_their_edges(dev, n, frames, w, rank,
+                                                      case):
+    """Kernel G beyond N = 1024: frame pairs at 2048 and 4096 (3 frames
+    leave a dead half), run pairs at 8192 and 16384 and in the split
+    route's tail; the active range ends at a run boundary, or full-scale
+    frames through seven expanding stages saturate the square sums to
+    INT32_MAX, the padding's value."""
+    cfg = _gos_cfg(n)
+    kernel = "split" if n > 16384 else "mid"
+    sat = case == "SQR saturated"
+    g = 0 if w == 1 else max(1, max(w, 2) // 8)
+    regs = (dict(mag_mode=1) if sat
+            else dict(cfar_fft_size=_run_cut(n, w, g, kernel)))
+    rt = _pair_rt(n, w, rank, **regs)
+    fft_cfg = _fft(n, expand=tuple(range(7)) if sat else None)
+    x = _int_iq((frames, n), dev, seed=n + w, amp=32767 if sat else 20000)
+    name = "chain_int_gos_split" if kernel == "split" else "chain_int_gos_mid"
+    before = dict(_build.LAUNCHES)
+    got = kint.chain_int_gos(x, rt, fft_cfg, cfg.cfar)
+    assert _took(before) == {name: 1}
+    want = kint.chain_int_gos_reference(x, rt, fft_cfg, cfg.cfar)
+    _assert_exact(got, want)
+    if sat:                          # the square sums saturate
+        mag = TB.mag_int_op(TB.fft_int_op(x, None, fft_cfg), rt.mag_mode)
+        assert bool((mag == 2**31 - 1).any())

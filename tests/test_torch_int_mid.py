@@ -23,8 +23,9 @@ reads.
   every bin it holds into each of the two rows that span it: every row
   cell is written once, the margins outside the frame by their owner.
 * Tail: F's run sums, 16 cells a thread, and G's rank statistics, the
-  block's 32 warps splitting each row's window starts into runs that cover
-  them once. The emulated chain equals ``chain_int_reference`` and
+  block's 32 warps on two windows a warp at w <= 32 (frame pairs over 4 or
+  2 rows, run pairs over one), their runs covering each row's window starts
+  once. The emulated chain equals ``chain_int_reference`` and
   ``chain_int_gos_reference`` over register points at every size, and the
   JAX integer ops (jitted, on the CPU) on the same seeded frames.
 * Shared memory: the exchanges free of bank conflicts at every size, the
@@ -98,11 +99,12 @@ def _mag_words(n_cells):
 
 def _plan_words(n):
     """``RspMidPlan<L>``: (the FFT's words, a row by cell, the front's
-    words, a magnitude row's words, all words)."""
+    words, a magnitude row's words, all words). G's rows by cell and its
+    statistic rows lie kStatP = a row by cell + 16 words apart."""
     rows = _per_block(n)
     stat = _span(n) + 2 * PAD
     fft = 2 * HALF                            # the planes
-    front = max(fft, 3 * rows * stat)         # or G's statistics and cells
+    front = max(fft, 3 * rows * (stat + 16))  # or G's statistics and cells
     row = _mag_words(_span(n))
     return fft, stat, front, row, front + rows * row
 
@@ -389,19 +391,46 @@ def test_the_emulated_mid_chain_equals_the_jax_integer_ops(n, name):
 
 
 @pytest.mark.parametrize("n", MID)
-@pytest.mark.parametrize("w, g", [(1, 0), (8, 2), (32, 4), (64, 8)])
+@pytest.mark.parametrize("w, g", [(1, 0), (2, 1), (8, 2), (16, 2), (32, 4),
+                                  (64, 8)])
 def test_g_warps_cover_each_rows_window_starts_once(n, w, g):
-    """The block's 32 warps split evenly among its rows; each warp's run of
-    window starts lies inside its row's [PAD - g - w, PAD + span + g + 1),
-    the runs cover it once, and every window stays inside the row."""
-    per_row = 32 // _per_block(n)
-    span = _span(n)
+    """G's selection over a block's rows [PAD - g - w, PAD + span + g + 1)
+    by the schedules of ``csrc/gos_cfar.cuh``: at w <= 32 frame pairs where
+    the block holds 4 or 2 rows (``rsp_gos_row_pairs``: the pairs' starts
+    cut into 32 equal runs, both halves of a warp on one run of two rows
+    kStatP words apart, an odd multiple of 16) and run pairs over its one
+    row at 8192 and 16384 (``rsp_gos_stats``: two runs a warp of one odd
+    length, half h of warp k on run 2k + h); at w = 64 a row's starts in
+    runs, one a warp. Every live row's starts are covered once, at every
+    live row count, and every window stays inside its row."""
+    rows, span = _per_block(n), _span(n)
     s_lo, s_hi = PAD - g - w, PAD + span + g + 1
-    per = -(-(s_hi - s_lo) // per_row)
-    runs = [(s_lo + k * per, min(s_lo + (k + 1) * per, s_hi))
-            for k in range(per_row)]
-    covered = np.concatenate([np.arange(a, b) for a, b in runs if a < b])
-    np.testing.assert_array_equal(covered, np.arange(s_lo, s_hi))
+    length = s_hi - s_lo
+    stat_p = _plan_words(n)[1] + 16
+    assert stat_p % 32 == 16
+    for live in range(1, rows + 1):
+        seen = np.zeros((rows + 1, s_hi), np.int64)
+        if rows == 1 and w <= 32:
+            per = -(-length // 64) | 1
+            for k in range(32):
+                for h in (0, 1):
+                    a = s_lo + (2 * k + h) * per
+                    seen[0, max(a, 0):max(min(a + per, s_hi), 0)] += 1
+        else:
+            pairs = w <= 32
+            units = (live + 1) // 2 if pairs else live
+            per = -(-units * length // 32)
+            for warp in range(32):
+                u, end = warp * per, min(warp * per + per, units * length)
+                while u < end:
+                    p = u // length
+                    v = min(end, (p + 1) * length)
+                    a, b = s_lo + u - p * length, s_lo + v - p * length
+                    for f in ((2 * p, 2 * p + 1) if pairs else (p,)):
+                        seen[f, a:b] += f < live
+                    u = v
+        assert (seen[:live, s_lo:] == 1).all() and not seen[live:].any()
+        assert not seen[:, :s_lo].any()
     assert s_lo >= 0 and s_hi - 1 + w <= span + 2 * PAD
 
 
@@ -453,10 +482,12 @@ def test_the_exchanges_are_conflict_free_and_the_stores_fit(n):
     for c in (-72, -1, 0, 5, 15, 16, 88):
         assert _worst(lambda m, k: _mag_slot(PAD + 16 * m + c)) == 1
     # G: the copy reads 32 consecutive cells a warp across one word of
-    # padding and writes them unpadded, as the output loop reads them
+    # padding and writes them unpadded, each row kStatP = stat + 16 words
+    # past the last, as the output loop reads them
     assert _worst(lambda m, k: _mag_slot(m + THREADS * k)) == 2
-    assert _worst(lambda m, k: m + THREADS * k) == 1
-    assert front >= fft and front >= 3 * _per_block(n) * stat
+    assert _worst(lambda m, k: (m + THREADS * k)
+                  + 16 * ((m + THREADS * k) // stat)) == 1
+    assert front >= fft and front >= 3 * _per_block(n) * (stat + 16)
     assert _mag_slot(stat - 1) < row
     assert words * 4 <= SMEM_MAX
 
