@@ -1,0 +1,10 @@
+"""device_idle_pct: the share of the traced slice in which no kernel, copy
+or set ran on the card (the union of their intervals, from the profiler's
+trace), in percent."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
