@@ -427,6 +427,16 @@ def compare_exact(got, want, what: str) -> float:
     return float(dthr)
 
 
+def compare_count(got, what: str) -> None:
+    """Check the kernel's count of the peaks (``detections``) against their
+    sum."""
+    want = int(got.peaks.sum().item())
+    if got.detections is None or int(got.detections.item()) != want:
+        raise AssertionError(f"{what}: count {got.detections} against "
+                             f"{want} peaks")
+    print(f"{what}: the kernel counted {want} peaks, their sum")
+
+
 def compare_words(got, want, bw: int, what: str) -> float:
     """Check packed CFAR words at the bench's wire bar; return the largest
     threshold-field difference in LSB."""
@@ -1029,22 +1039,23 @@ def row_blocks(card: str, x, xi, spec, rt, cfg, x2, rt_pc, pc_cfg,
                          kchain._row_twiddles(n, dev).data_ptr(),
                          n.bit_length() - 1, fft_scale(n, cfg.fft),
                          kcfar.ca_registers(rt, cfg.cfar, n))),
-        "chain_gos": ("rsp_chain_gos", [P, I, ctypes.c_float, kcfar.GosRegs],
-                      x, torch.float32, (
+        "chain_gos": ("rsp_chain_gos",
+                      [P, I, ctypes.c_float, kcfar.GosRegs, P], x,
+                      torch.float32, (
                           kchain._row_twiddles(n, dev).data_ptr(),
                           n.bit_length() - 1, fft_scale(n, gcfg.fft),
-                          kcfar.gos_registers(grt, gcfg.cfar, n))),
+                          kcfar.gos_registers(grt, gcfg.cfar, n), None)),
         "chain_int": ("rsp_chain_int_rows", [P, I, I, I, kint.IntRegs], xi,
                       torch.int32, (
                           kint._int_twiddles(n, dev).data_ptr(),
                           n.bit_length() - 1, *kint.fft_masks(cfg.fft, n),
                           kint.int_registers(rt, cfg.cfar, n))),
         "chain_int_gos": ("rsp_chain_int_gos_rows",
-                          [P, I, I, I, kint.IntRegs], xi, torch.int32, (
+                          [P, I, I, I, kint.IntRegs, P], xi, torch.int32, (
                               kint._int_twiddles(n, dev).data_ptr(),
                               n.bit_length() - 1,
                               *kint.fft_masks(igcfg.fft, n),
-                              kint.int_registers(grt, igcfg.cfar, n))),
+                              kint.int_registers(grt, igcfg.cfar, n), None)),
         "pc_ca": ("rsp_pc_ca", [P, P, I, ctypes.c_float, kcfar.CaRegs], x2,
                   torch.float32, (
                       kchain._row_twiddles(n2, dev).data_ptr(),
@@ -2509,10 +2520,10 @@ def main() -> int:
     grt = rsp.RuntimeConfig.make(**GOS_REGS)
     print(f"plain GOS versions run over {GOS_CHUNK}-channel chunks of the "
           f"{SHAPE[0]} channels (their window stacks)")
-    err_d = compare(kchain.chain_gos(x, grt, gcfg.fft, gcfg.cfar),
-                    chunked(lambda c: kchain.chain_gos_reference(
-                        c, grt, gcfg.fft, gcfg.cfar), x),
-                    "chain_gos vs chain_gos_reference")
+    got_d = kchain.chain_gos(x, grt, gcfg.fft, gcfg.cfar)
+    err_d = compare(got_d, chunked(lambda c: kchain.chain_gos_reference(
+        c, grt, gcfg.fft, gcfg.cfar), x), "chain_gos vs chain_gos_reference")
+    compare_count(got_d, "chain_gos")
     err_c = compare(kcfar.mag_gos_cfar(spec, grt, gcfg.cfar),
                     chunked(lambda c: kcfar.mag_gos_cfar_reference(
                         c, grt, gcfg.cfar), spec),
@@ -2554,10 +2565,11 @@ def main() -> int:
                           kint.chain_int_reference(xi16, rt, icfg.fft,
                                                    icfg.cfar),
                           "chain_int vs chain_int_reference")
-    err_g = compare_exact(kint.chain_int_gos(xi16, grt, igcfg.fft, igcfg.cfar),
-                          chunked(lambda c: kint.chain_int_gos_reference(
-                              c, grt, igcfg.fft, igcfg.cfar), xi16),
-                          "chain_int_gos vs chain_int_gos_reference")
+    got_g = kint.chain_int_gos(xi16, grt, igcfg.fft, igcfg.cfar)
+    err_g = compare_exact(got_g, chunked(
+        lambda c: kint.chain_int_gos_reference(c, grt, igcfg.fft, igcfg.cfar),
+        xi16), "chain_int_gos vs chain_int_gos_reference")
+    compare_count(got_g, "chain_int_gos")
 
     # the 2-D family at the JAX bench's shapes
     taps = rsp.golden.lfm_chirp(128, 0.0, 0.25)

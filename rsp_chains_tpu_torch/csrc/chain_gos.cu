@@ -34,7 +34,8 @@
 // 16 floats between rows (RspGosRows), 55,552 bytes a block at N = 1024;
 // three blocks an SM (RSP_ROWS_BLOCKS, chip_smoke.py `row_blocks` times 1
 // to 4). No thread returns before the selection's last barrier: a dead
-// frame's threads work for the live ones.
+// frame's threads work for the live ones. After its tail a warp counts the
+// peaks its live lanes stored (rsp_count_cells).
 #include <cuda_runtime.h>
 
 #include "gos_rows.cuh"
@@ -69,14 +70,16 @@ static __device__ __forceinline__ void rsp_gos_cells(const float* rw, int m,
 }
 
 // Kernel D over `frames` frames of kN cells. tw: the pass twiddles of
-// kernels/chain.py `row_twiddles(kN)`. Grid ceil(frames / kRows).
+// kernels/chain.py `row_twiddles(kN)`; count: the counter the frames' peaks
+// are added to, or null. Grid ceil(frames / kRows).
 template <int kN>
 __global__ void __launch_bounds__(RSP_THREADS, RSP_ROWS_BLOCKS)
 rsp_chain_gos_rows_kernel(const float* __restrict__ re,
                           const float* __restrict__ im,
                           const float2* __restrict__ tw,
                           float* __restrict__ thr, uint8_t* __restrict__ peaks,
-                          int frames, float scale, RspGosRegs r) {
+                          int frames, float scale, RspGosRegs r,
+                          unsigned long long* count) {
   using P = RspRowPlan<kN>;
   constexpr int T = P::kT;
   extern __shared__ float smem[];
@@ -137,6 +140,7 @@ rsp_chain_gos_rows_kernel(const float* __restrict__ re,
     rsp_gos_cells<T>(rw, m, r, [&](int i) {
       return fmaxf(cash(i - g - w), cash(i + g + 1));
     }, out, pk);
+    rsp_count_cells<T>(count, pk, m, rsp_live_lanes<T, P::kRows>(frames));
   } else if (r.algorithm == 1) {
     const int rows = min(P::kRows, frames - (int)blockIdx.x * P::kRows);
     rsp_gos_rows_stats<kN>(smem, rows, w, g, lo, hi, r.rank_lagg,
@@ -146,6 +150,7 @@ rsp_chain_gos_rows_kernel(const float* __restrict__ re,
     rsp_gos_cells<T>(rw, m, r, [&](int i) {
       return rsp_combine(r.cfar_mode, pr[i], pi[i]);
     }, out, pk);
+    rsp_count_cells<T>(count, pk, m, rsp_live_lanes<T, P::kRows>(frames));
   } else {
     if (!live) return;
     const RspCaRegs ca{r.log2w,         r.guard,         r.div_sum,
@@ -153,13 +158,15 @@ rsp_chain_gos_rows_kernel(const float* __restrict__ re,
                        r.active_lo,     r.active_hi,     r.mag_mode,
                        r.scaler};
     rsp_ca_row(rw, m, ca, out, pk);
+    rsp_count_cells<16>(count, pk, m, rsp_live_lanes<T, P::kRows>(frames));
   }
 }
 
 template <int kN>
 static int rsp_chain_gos_rows(const float* re, const float* im, float* thr,
                               uint8_t* peaks, int frames, cudaStream_t stream,
-                              const float* tw, float scale, RspGosRegs regs) {
+                              const float* tw, float scale, RspGosRegs regs,
+                              unsigned long long* count) {
   using P = RspRowPlan<kN>;
   const size_t smem = (size_t)RspGosRows<kN>::kFloats * sizeof(float);
   const cudaError_t e = rsp_opt_in(rsp_chain_gos_rows_kernel<kN>, smem);
@@ -167,28 +174,34 @@ static int rsp_chain_gos_rows(const float* re, const float* im, float* thr,
   rsp_chain_gos_rows_kernel<kN><<<(frames + P::kRows - 1) / P::kRows,
                                   RSP_THREADS, smem, stream>>>(
       re, im, reinterpret_cast<const float2*>(tw), thr, peaks, frames, scale,
-      regs);
+      regs, count);
   return (int)cudaGetLastError();
 }
 
 // re, im, thr: float32 [frames, 2^log2n]; peaks: uint8 [frames, 2^log2n];
 // tw: float32 [2^log2n + 16 * 2^(log2n-8), 2] (cos, sin), the pass twiddles
 // of kernels/chain.py `row_twiddles`; all contiguous on the current device,
-// 8 <= log2n <= 10. Launches on `stream`; returns cudaGetLastError().
+// 8 <= log2n <= 10. count: null, or a 64-bit counter on the device, zeroed
+// on `stream` before the launch, which then holds the number of peaks.
+// Launches on `stream`; returns the memset's error or cudaGetLastError().
 extern "C" int rsp_chain_gos(const float* re, const float* im, float* thr,
                              uint8_t* peaks, int frames, cudaStream_t stream,
                              const float* tw, int log2n, float scale,
-                             RspGosRegs regs) {
+                             RspGosRegs regs, unsigned long long* count) {
+  if (count != nullptr) {
+    const cudaError_t e = cudaMemsetAsync(count, 0, sizeof *count, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
   switch (log2n) {
     case 8:
       return rsp_chain_gos_rows<256>(re, im, thr, peaks, frames, stream, tw,
-                                     scale, regs);
+                                     scale, regs, count);
     case 9:
       return rsp_chain_gos_rows<512>(re, im, thr, peaks, frames, stream, tw,
-                                     scale, regs);
+                                     scale, regs, count);
     case 10:
       return rsp_chain_gos_rows<1024>(re, im, thr, peaks, frames, stream, tw,
-                                      scale, regs);
+                                      scale, regs, count);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -33,7 +33,8 @@
 // (gos_rows.cuh), and a tail whose thread takes the cells m + (N / 16) k, a
 // warp's stores coalesced; with algorithm 0 F's run-sum CA tail
 // (`rsp_int_ca_runs`). 55,552 bytes of shared memory a block at N = 1024
-// (RspGosRows), three blocks an SM (RSP_ROWS_BLOCKS). The host
+// (RspGosRows), three blocks an SM (RSP_ROWS_BLOCKS). After the tail a
+// warp counts the peaks its live lanes stored (rsp_count_cells). The host
 // (kernels/int_chain.py) picks the route by N alone: frames of 2048-16384
 // take int_mid.cu (one launch, the selection of gos_cfar.cuh over rows in
 // shared memory), longer ones int_split.cu.
@@ -71,7 +72,8 @@ static __device__ __forceinline__ void rsp_int_gos_cells(
   }
 }
 
-// Kernel G over `frames` frames of kN cells. Grid ceil(frames / kRows).
+// Kernel G over `frames` frames of kN cells; count: the counter the frames'
+// peaks are added to, or null. Grid ceil(frames / kRows).
 template <int kN>
 __global__ void __launch_bounds__(RSP_THREADS, RSP_ROWS_BLOCKS)
 rsp_chain_int_gos_rows_kernel(const int* __restrict__ re,
@@ -80,7 +82,7 @@ rsp_chain_int_gos_rows_kernel(const int* __restrict__ re,
                               int* __restrict__ thr,
                               uint8_t* __restrict__ peaks, int frames,
                               unsigned expand_mask, unsigned lsb_mask,
-                              RspIntRegs r) {
+                              RspIntRegs r, unsigned long long* count) {
   using P = RspRowPlan<kN>;
   constexpr int T = P::kT;
   extern __shared__ int ismem[];
@@ -104,6 +106,7 @@ rsp_chain_int_gos_rows_kernel(const int* __restrict__ re,
     __syncthreads();
     if (!live) return;
     rsp_int_gos_cells<T>(rw, pr, pi, m, r, t, pk);
+    rsp_count_cells<T>(count, pk, m, rsp_live_lanes<T, P::kRows>(frames));
     return;
   }
   if (!live) return;
@@ -114,6 +117,7 @@ rsp_chain_int_gos_rows_kernel(const int* __restrict__ re,
     case 3: rsp_int_ca_runs<8>(rw, 16 * m, r, t, pk); break;
     default: rsp_int_ca_runs<16>(rw, 16 * m, r, t, pk); break;
   }
+  rsp_count_cells<16>(count, pk, m, rsp_live_lanes<T, P::kRows>(frames));
 }
 
 template <int kN>
@@ -121,7 +125,8 @@ static int rsp_chain_int_gos_rows_launch(const int* re, const int* im,
                                          int* thr, uint8_t* peaks, int frames,
                                          cudaStream_t stream, const int* tw,
                                          unsigned expand_mask,
-                                         unsigned lsb_mask, RspIntRegs regs) {
+                                         unsigned lsb_mask, RspIntRegs regs,
+                                         unsigned long long* count) {
   using P = RspRowPlan<kN>;
   const size_t smem = (size_t)RspGosRows<kN>::kFloats * sizeof(int);
   const cudaError_t e = rsp_opt_in(rsp_chain_int_gos_rows_kernel<kN>, smem);
@@ -129,30 +134,40 @@ static int rsp_chain_int_gos_rows_launch(const int* re, const int* im,
   rsp_chain_int_gos_rows_kernel<kN><<<(frames + P::kRows - 1) / P::kRows,
                                       RSP_THREADS, smem, stream>>>(
       re, im, reinterpret_cast<const int2*>(tw), thr, peaks, frames,
-      expand_mask, lsb_mask, regs);
+      expand_mask, lsb_mask, regs, count);
   return (int)cudaGetLastError();
 }
 
 // re, im, thr: int32 [frames, 2^log2n]; peaks: uint8 [frames, 2^log2n];
 // tw: int32 [2^log2n, 2] (int_front.cuh); all contiguous on the current
-// device, 8 <= log2n <= 10. Launches on `stream`; returns
+// device, 8 <= log2n <= 10. count: null, or a 64-bit counter on the
+// device, zeroed on `stream` before the launch, which then holds the number
+// of peaks. Launches on `stream`; returns the memset's error or
 // cudaGetLastError().
 extern "C" int rsp_chain_int_gos_rows(const int* re, const int* im, int* thr,
                                       uint8_t* peaks, int frames,
                                       cudaStream_t stream, const int* tw,
                                       int log2n, int expand_mask,
-                                      int lsb_mask, RspIntRegs regs) {
+                                      int lsb_mask, RspIntRegs regs,
+                                      unsigned long long* count) {
+  if (count != nullptr) {
+    const cudaError_t e = cudaMemsetAsync(count, 0, sizeof *count, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
   const unsigned em = (unsigned)expand_mask, lm = (unsigned)lsb_mask;
   switch (log2n) {
     case 8:
       return rsp_chain_int_gos_rows_launch<256>(re, im, thr, peaks, frames,
-                                                stream, tw, em, lm, regs);
+                                                stream, tw, em, lm, regs,
+                                                count);
     case 9:
       return rsp_chain_int_gos_rows_launch<512>(re, im, thr, peaks, frames,
-                                                stream, tw, em, lm, regs);
+                                                stream, tw, em, lm, regs,
+                                                count);
     case 10:
       return rsp_chain_int_gos_rows_launch<1024>(re, im, thr, peaks, frames,
-                                                 stream, tw, em, lm, regs);
+                                                 stream, tw, em, lm, regs,
+                                                 count);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -37,6 +37,14 @@
 //   starts with its pair's other half idle. The magnitude rows lie at an
 //   odd multiple of 16 floats apart (RspGosRows::kMag), so a pair's two
 //   broadcast loads fall in different banks.
+// * The CPI's count (rsp_count_cells): once a warp's live lanes have
+//   stored the peak bytes of their cells, each lane reads 16 of the warp's
+//   bytes back in one load, the warp adds their peaks, and one lane adds the
+//   sum to a 64-bit counter in device memory, which the C entry zeroes on
+//   the launch's stream. Integer atomics are exact in any order. So the
+//   stream reads the count and never sums the peaks again. The tail's loop
+//   over the cells keeps no count of its own: one more live register there
+//   makes D spill (-Xptxas -v).
 #pragma once
 
 #include "gos_cfar.cuh"
@@ -103,4 +111,38 @@ static __device__ __forceinline__ void rsp_gos_rows_stats(T* smem, int live,
       },
       live, RSP_PAD + lo - g - w, hi - lo + 2 * g + w + 1, w, RSP_PAD + lo,
       RSP_PAD + hi, k0, k1);
+}
+
+// The lanes of this thread's warp that hold live frames (of `frames`, kRows
+// a block, kT threads a frame): a block's frames are its threads / kT in
+// order, so a warp's live lanes are its first ones.
+template <int kT, int kRows>
+static __device__ __forceinline__ unsigned rsp_live_lanes(int frames) {
+  const int n = (frames - (int)blockIdx.x * kRows) * kT -
+                (int)(threadIdx.x & ~31u);
+  return n >= 32 ? 0xffffffffu : (1u << max(n, 0)) - 1u;
+}
+
+// Adds to *count (nothing where it is null) the peaks that the live lanes
+// `lanes` of this thread's warp have stored, each at the cells m + kT j (j
+// < 16) of its frame's row pk, m its thread of the frame; the live lanes
+// call it. Each lane reads 16 of the warp's bytes (each 0 or 1): at kT <=
+// 32 a warp holds whole frames, and the lane reads its frame's cells 16 m
+// ..; at kT = 64 a warp holds half a frame, 32 cells of each j, two lanes a
+// j. A tail whose thread stores the 16 cells 16 m .. (the CA tails) counts
+// as kT = 16.
+template <int kT>
+static __device__ __forceinline__ void rsp_count_cells(
+    unsigned long long* count, const uint8_t* pk, int m, unsigned lanes) {
+  static_assert(kT == 16 || kT == 32 || kT == 64, "the row plan's kT");
+  if (count == nullptr) return;
+  __syncwarp(lanes);  // the warp's peak bytes are stored, and visible to it
+  const int lane = threadIdx.x & 31;
+  const uint8_t* p = kT <= 32 ? pk + 16 * m
+                              : pk + kT * (lane >> 1) + (m - lane) +
+                                    16 * (lane & 1);
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const unsigned n = __reduce_add_sync(
+      lanes, __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w));
+  if (lane == 0 && n != 0) atomicAdd(count, (unsigned long long)n);
 }

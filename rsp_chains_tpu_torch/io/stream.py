@@ -20,8 +20,10 @@ The pipeline runs on one device: the chain's (``fn.device``), or the
   event (``jax.block_until_ready`` in the JAX package). ``block_every`` = K
   waits on every K-th: one stream, so its completion implies the ones before
   it; the owed completion is paid at ``stop()``;
-* detections are summed on the compute stream (``peaks.sum``, int64) and
-  cross to the host only where ``detections_every`` says so.
+* a CPI's detections are the count its kernel made, where it made one
+  (``CfarOutput.detections``: Kernels D and G), else summed on the compute
+  stream (``peaks.sum``, int64) (``cpi_count``); they cross to the host only
+  where ``detections_every`` says so.
 
 On the CPU (``device="cpu"``, as the tests run it) the same threads run the
 plain versions with no streams or events.
@@ -72,7 +74,7 @@ class CpiMetrics:
 PHASES = ("t_queue_wait", "t_place", "t_dispatch", "t_block", "t_result")
 # the counters inside and beside the phases (``phase_totals``)
 COUNTERS = ("t_submit_wait", "t_cpu_dispatch", "t_launch", "n_launches",
-            "t_fetch")
+            "t_fetch", "n_kernel_counts")
 # the pinned host buffers of the CUDA ring: the copy of one CPI overlaps the
 # compute of the one before
 PINNED_SLOTS = 2
@@ -109,6 +111,8 @@ class StreamStats:
     n_launches: int = 0         # C entry launches during t_dispatch, added
     #                             when the CPI is delivered
     t_fetch: float = 0.0        # the count's fetch to the host, in t_result
+    n_kernel_counts: int = 0    # delivered CPIs whose count their kernel
+    #                             made (``cpi_count``), added as n_launches
 
     def __post_init__(self):
         # counters are mutated from the submit caller, the worker, and the
@@ -396,7 +400,7 @@ class StreamingPipeline:
                     out = self._fn(x, rt)  # the launches queue on the stream
                     counts = None
                     with span("rsp.stream.count", on):
-                        part = self._count_of(out)
+                        part, counted = self._count_of(out)
                         if part is not None:
                             total = part if self._det_acc is None \
                                 else self._det_acc + part
@@ -417,21 +421,21 @@ class StreamingPipeline:
             except Exception as e:         # noqa: BLE001 — elastic: skip the CPI
                 self._fail(seq, e)
                 self._outq.put((seq, None, self._last_ev,
-                                self._failed_counts(), t_in, 0, 0))
+                                self._failed_counts(), t_in, 0, 0, 0))
                 continue
-            # the launches count with the CPI's delivery, so that a window's
-            # n_launches over its frames_out is a delivered CPI's launches
+            # the launches, and whether the kernel counted the CPI, are added
+            # at its delivery, so that a window's n_launches over its
+            # frames_out is a delivered CPI's launches
             self._outq.put((seq, out, ev, counts, t_in,
-                            int(np.prod(cpi.shape)), n_e - n_d))
+                            int(np.prod(cpi.shape)), n_e - n_d, int(counted)))
             if t_start is None:
                 t_start = time.perf_counter()
             self.stats.set_time(time.perf_counter() - t_start)
 
-    def _count_of(self, out) -> Optional[torch.Tensor]:
-        """The CPI's detections, an int64 tensor summed on the compute
-        stream, or None for an output without peaks (wire words)."""
-        return out.peaks.sum(dtype=torch.int64) if hasattr(out, "peaks") \
-            else None
+    def _count_of(self, out) -> tuple:
+        """The CPI's detections and whether its kernel counted them
+        (``cpi_count``)."""
+        return cpi_count(out)
 
     def _failed_counts(self):
         """The ``(part, total)`` counts that a failed CPI passes to the
@@ -503,8 +507,8 @@ class StreamingPipeline:
         while not (self._stop.is_set() and self._worker_done.is_set()
                    and self._outq.empty()):
             try:
-                seq, out, ev, counts, t_in, n_samples, n_launches = \
-                    self._outq.get(timeout=0.05)
+                (seq, out, ev, counts, t_in, n_samples, n_launches,
+                 n_counted) = self._outq.get(timeout=0.05)
             except queue.Empty:
                 continue
             on = self._drain_spans = profiling.SPANS
@@ -539,7 +543,7 @@ class StreamingPipeline:
                 continue
             lat = time.perf_counter() - t_in
             self.stats.bump(frames_out=1, total_samples=n_samples,
-                            n_launches=n_launches)
+                            n_launches=n_launches, n_kernel_counts=n_counted)
             try:
                 self._deliver(seq, out, ev, counts, lat, n_samples)
             except Exception as e:  # noqa: BLE001 — a metrics/callback error
@@ -618,6 +622,19 @@ class StreamingPipeline:
         if self._det_last is not None:
             self.detections_total = self._fetch(*self._det_last)
         return self.detections_total
+
+
+def cpi_count(out) -> tuple:
+    """``(detections, counted)`` of a CPI's output: the count its kernel made
+    (``CfarOutput.detections``, an int64 tensor) and True, else its peaks
+    summed on the current stream (``peaks.sum``, int64) and False; ``(None,
+    False)`` for an output without peaks (wire words)."""
+    if not hasattr(out, "peaks"):
+        return None, False
+    det = getattr(out, "detections", None)
+    if det is not None:
+        return det, True
+    return out.peaks.sum(dtype=torch.int64), False
 
 
 def _on_device(cpi, device: torch.device) -> bool:

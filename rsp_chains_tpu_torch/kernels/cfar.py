@@ -230,21 +230,29 @@ def call_entry(name: str, device: torch.device, fn: Callable[..., int],
 
 
 def launch(name: str, x: C, fn: Callable[..., int], *args,
-           dtype: torch.dtype = torch.float32) -> CfarOutput:
+           dtype: torch.dtype = torch.float32,
+           count: bool = False) -> CfarOutput:
     """Allocate threshold (of ``dtype``, the input planes' dtype) and peaks
     for the frames of ``x`` (CUDA; ``x.im`` may be None where the kernel
     reads one plane), launch the kernel through its C entry ``fn`` with the
     kernel arguments ``args`` on the current stream, and count the launch
-    under ``name``."""
+    under ``name``. With ``count`` (an entry whose last argument is a
+    counter, Kernels D and G) the entry also gets an int64 counter, which the
+    output carries as ``detections``."""
     check_cuda_operands(*(t for t in x if t is not None), dtype=dtype)
     thr = torch.empty(x.shape, dtype=dtype, device=x.device)
     pk = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     frames = x.re.numel() // x.shape[-1]
+    det = None
     if frames:
+        if count:
+            det = torch.empty((), dtype=torch.int64, device=x.device)
+            args += (det.data_ptr(),)
         call_entry(name, x.device, fn,
                    (x.re.data_ptr(), None if x.im is None else x.im.data_ptr(),
                     thr.data_ptr(), pk.data_ptr(), frames), args)
-    return CfarOutput(threshold=thr, peaks=pk.view(torch.bool))
+    return CfarOutput(threshold=thr, peaks=pk.view(torch.bool),
+                      detections=det)
 
 
 def _tail_input(spectrum, mag_given: bool) -> C:

@@ -8,7 +8,8 @@ chain stages that honour the FFT-size and CFAR registers.
   ``chain_pallas.py::fused_chain_gos`` (:1221, ``pallas_call`` :1306); CUDA
   source ``csrc/chain_gos.cu``, Kernel A's row plan with the warp-resident
   rank selection of ``csrc/gos_cfar.cuh`` over the block's frames
-  (``csrc/gos_rows.cuh``).
+  (``csrc/gos_rows.cuh``); it also counts the peaks
+  (``CfarOutput.detections``).
 * Kernel E, ``wire_ca``: the wire top's CA chain, packed IQ beat words in,
   packed ``{threshold | bin | peak}`` words out. Replaces
   ``chain_pallas.py::fused_chain_ca_packed`` (:1042, ``pallas_call`` :1122);
@@ -117,14 +118,15 @@ def _check_fusable(name: str, n: int, fft_cfg: FftConfig) -> None:
 
 
 def _chain_kernel(name: str, symbol: str, regs, x: CLike, fft_cfg: FftConfig,
-                  tw: torch.Tensor) -> CfarOutput:
+                  tw: torch.Tensor, count: bool = False) -> CfarOutput:
     """Launch a whole-chain kernel over the CUDA IQ frames ``x`` with the
-    twiddle table ``tw``."""
+    twiddle table ``tw``; with ``count``, an entry that counts the peaks
+    (``launch``)."""
     n = x.shape[-1]
     fn = entry(symbol, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-               type(regs))
+               type(regs), *([ctypes.c_void_p] if count else []))
     return launch(name, x, fn, tw.data_ptr(), n.bit_length() - 1,
-                  fft_scale(n, fft_cfg), regs)
+                  fft_scale(n, fft_cfg), regs, count=count)
 
 
 def chain_ca_reference(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
@@ -159,7 +161,8 @@ def chain_gos(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
               cfar_cfg: CfarConfig) -> CfarOutput:
     """FFT + magnitude + GOS / GOSCA / CASH CFAR at the full elaborated FFT
     size over IQ frames ``[..., N]``, N = ``fft_cfg.max_size`` in {256, 512,
-    1024}. Returns threshold float32 and peaks bool."""
+    1024}. Returns threshold float32, peaks bool and, from the kernel, the
+    number of peaks (``detections``)."""
     xp = as_pair(x)
     n = xp.shape[-1]
     _check_fusable("chain_gos", n, fft_cfg)
@@ -168,7 +171,7 @@ def chain_gos(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
         return chain_gos_reference(xp, rt, fft_cfg, cfar_cfg)
     return _chain_kernel("chain_gos", "rsp_chain_gos",
                          gos_registers(rt, cfar_cfg, n), xp, fft_cfg,
-                         _row_twiddles(n, xp.device))
+                         _row_twiddles(n, xp.device), count=True)
 
 
 def _full_size(rt: RuntimeConfig, fft_cfg: FftConfig) -> bool:

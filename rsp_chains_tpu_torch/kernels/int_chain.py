@@ -14,7 +14,8 @@
   on the same three routes as F: frames of ``ROW_SIZES`` on F's row plan
   (``csrc/chain_int_gos.cu``, entry ``rsp_chain_int_gos_rows``, the
   selection over the block's frames of ``csrc/gos_rows.cuh``, counted as
-  ``chain_int_gos``), then the mid-size and the split routes.
+  ``chain_int_gos``; it also counts the peaks, ``CfarOutput.detections``),
+  then the mid-size and the split routes.
 * The mid-size route of F and G for frames of 2048 ... 16384 (CUDA source
   ``csrc/int_mid.cu``, entry ``rsp_int_mid``, counted as ``chain_int_mid``
   and ``chain_int_gos_mid``): one launch; a block of 1024 threads holds
@@ -189,17 +190,19 @@ def chain_int_gos_reference(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
 
 
 def _int_kernel(name: str, symbol: str, x: C, regs: IntRegs,
-                fft_cfg: FftConfig) -> CfarOutput:
+                fft_cfg: FftConfig, count: bool = False) -> CfarOutput:
     """Launch the integer whole-chain entry ``symbol`` (the row plan's or
     the mid-size route's) over the CUDA frames ``x`` with the register
-    struct ``regs``, counted under ``name``."""
+    struct ``regs``, counted under ``name``; with ``count``, an entry that
+    counts the peaks (Kernel G's row plan, ``launch``)."""
     n = x.shape[-1]
     xi = C(x.re.to(torch.int32).contiguous(), x.im.to(torch.int32).contiguous())
     expand, lsb = fft_masks(fft_cfg, n)
     fn = entry(symbol, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-               ctypes.c_int, IntRegs)
+               ctypes.c_int, IntRegs, *([ctypes.c_void_p] if count else []))
     return launch(name, xi, fn, _int_twiddles(n, x.device).data_ptr(),
-                  n.bit_length() - 1, expand, lsb, regs, dtype=torch.int32)
+                  n.bit_length() - 1, expand, lsb, regs, dtype=torch.int32,
+                  count=count)
 
 
 def _split_kernel(name: str, x: C, regs: IntRegs,
@@ -223,12 +226,14 @@ def _split_kernel(name: str, x: C, regs: IntRegs,
 def _route(x: C, regs: IntRegs, fft_cfg: FftConfig,
            gos: bool) -> CfarOutput:
     """Kernel F (``gos`` False) or G over the CUDA frames ``x`` on the route
-    of their N: the row plan, the mid-size route or the split route."""
+    of their N: the row plan, the mid-size route or the split route. G's
+    row plan counts the peaks."""
     n = x.shape[-1]
     suffix = "_gos" if gos else ""
     if n in ROW_SIZES:
         return _int_kernel(f"chain_int{suffix}",
-                           f"rsp_chain_int{suffix}_rows", x, regs, fft_cfg)
+                           f"rsp_chain_int{suffix}_rows", x, regs, fft_cfg,
+                           gos)
     if n <= 1 << MAX_LOG2N:
         return _int_kernel(f"chain_int{suffix}_mid", "rsp_int_mid", x, regs,
                            fft_cfg)
@@ -256,7 +261,8 @@ def chain_int_gos(x: CLike, rt: RuntimeConfig, fft_cfg: FftConfig,
     """Bit-true integer FFT + magnitude (modes 0-2) + integer CA or GOS CFAR
     (the algorithm register of a GOSCA elaboration) at the full elaborated
     FFT size, frames as ``chain_int``'s. The CASH mode is refused: it runs on
-    the integer ops. Returns an int32 threshold and bool peaks."""
+    the integer ops. Returns an int32 threshold, bool peaks and, from the
+    row plan's kernel (N <= 1024), the number of peaks (``detections``)."""
     xp = x if isinstance(x, C) else as_pair(x)
     n = xp.shape[-1]
     _check_operands("chain_int_gos", n, rt, fft_cfg, cfar_cfg, True)

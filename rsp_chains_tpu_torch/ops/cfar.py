@@ -31,12 +31,16 @@ from ..configs import CfarConfig, CfarVariant, EdgePolicy, RuntimeConfig
 
 class CfarOutput(NamedTuple):
     """Per-bin CFAR result. ``noise`` / ``cut`` are None unless elaborated
-    (``CfarConfig.emit_noise`` / ``send_cut``)."""
+    (``CfarConfig.emit_noise`` / ``send_cut``). ``detections`` is the number
+    of peaks where the kernel that made the output counted them (Kernels D
+    and G), else None: an output built anew (a concatenation, a slice, an
+    integration) sets none."""
 
     threshold: torch.Tensor               # float32 [..., N]
     peaks: torch.Tensor                   # bool    [..., N]
     noise: Optional[torch.Tensor] = None  # float32 [..., N]
     cut: Optional[torch.Tensor] = None    # float32 [..., N]
+    detections: Optional[torch.Tensor] = None  # int64 [], on the device
 
 
 def window_registers(rt: RuntimeConfig, cfg: CfarConfig) -> tuple[int, int]:

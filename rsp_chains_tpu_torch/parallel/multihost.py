@@ -38,7 +38,7 @@ import torch.distributed as dist
 
 from ..chain import Chain, _host_to_device
 from ..cplx import C
-from ..io.stream import StreamingPipeline
+from ..io.stream import StreamingPipeline, cpi_count
 from .mesh import CHANNEL_AXIS, RANGE_AXIS, Mesh, _cuda_devices
 from .sharded import _leaf, _on, _tmap, make_sharded_pipeline
 
@@ -366,13 +366,15 @@ class PodStreamingPipeline(StreamingPipeline):
         lo, hi = self._fn.local_rows(total)
         return self._fn.shards(super()._place(_rows(cpi, lo, hi)), total)
 
-    def _count_of(self, out) -> torch.Tensor:
+    def _count_of(self, out) -> tuple:
         # every CPI counts (0 without peaks): the processes must reduce at
-        # the same CPIs
-        parts = [s.data.peaks.sum(dtype=torch.int64).to(self.device)
-                 for s in out if hasattr(s.data, "peaks")]
+        # the same CPIs. The kernels counted the CPI where they counted each
+        # shard's peaks (``cpi_count``).
+        counts = [c for c in map(cpi_count, (s.data for s in out))
+                  if c[0] is not None]
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
-        return sum(parts, zero)
+        return (sum((c.to(self.device) for c, _ in counts), zero),
+                bool(counts) and all(k for _, k in counts))
 
     def _failed_counts(self):
         # a failed CPI still takes part in the reduction, adding 0

@@ -50,15 +50,23 @@ from ..ops.logmag import logmag
 from .halo import exchange_halo, extend_with_halo
 from .mesh import CHANNEL_AXIS, RANGE_AXIS, Mesh
 
+# the fields of a CfarOutput that hold a value a cell
+_CELL_FIELDS = ("threshold", "peaks", "noise", "cut")
+
 
 def _tmap(fn: Callable, *trees):
     """``fn`` over the tensors of a tensor, a ``C`` or a ``CfarOutput``
-    (None fields stay None)."""
+    (None fields stay None). A ``CfarOutput``'s fields of cells are mapped;
+    a kernel's count of the whole output (``detections``) follows no split,
+    slice or join, so the result has none."""
     first = trees[0]
     if first is None:
         return None
     if isinstance(first, torch.Tensor):
         return fn(*trees)
+    if isinstance(first, CfarOutput):
+        return CfarOutput(*(_tmap(fn, *(getattr(t, f) for t in trees))
+                            for f in _CELL_FIELDS))
     return type(first)(*(_tmap(fn, *parts) for parts in zip(*trees)))
 
 

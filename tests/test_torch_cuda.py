@@ -825,6 +825,175 @@ def test_chain_int_gos_row_plan_over_part_filled_blocks(dev, n, frames, regs,
     _assert_exact(got, kint.chain_int_gos_reference(x, rt, cfg.fft, cfg.cfar))
     assert _build.BUILDS == 1
 
+# ---- Kernels D and G count their peaks (CfarOutput.detections) ----
+
+# frames of 1, 3 and 17 leave the last block part filled (at N = 256 a warp
+# holds two frames, one live and one dead), 64 fill the blocks
+COUNT_FRAMES = [1, 3, 17, 64]
+MOST = dict(index_lagg=0, index_lead=0, threshold_scaler=0.05)
+COUNT_REGS = {
+    "GOS": dict(),
+    "GOSCA GO, grouping": dict(cfar_mode=1, index_lagg=8, index_lead=24,
+                               peak_grouping=1),
+    "GOSCA SO, cut": dict(cfar_mode=2, cfar_fft_size=200),
+    "CASH": dict(cfar_mode=3, sub_window_size=8),
+    "CA sums, grouping": dict(cfar_algorithm=0, cfar_mode=1, peak_grouping=1),
+    "most detect": MOST,
+    "most detect, cut, grouping": dict(MOST, cfar_fft_size=300,
+                                       peak_grouping=1),
+    "most detect, CASH, cut": dict(MOST, cfar_mode=3, sub_window_size=4,
+                                   cfar_fft_size=250),
+    "most detect, CA sums": dict(MOST, cfar_algorithm=0),
+}
+
+
+def _uncounted(kernel, x, rt, cfg):
+    """Kernel D (``chain_gos``) or G (``chain_int_gos``) through its C entry
+    with a null counter: no memset and no atomics."""
+    import ctypes
+
+    from rsp_chains_tpu_torch.ops.fft import fft_scale
+
+    n, P, I = x.shape[-1], ctypes.c_void_p, ctypes.c_int
+    if kernel == "chain_gos":
+        fn = kcfar.entry("rsp_chain_gos", P, I, ctypes.c_float,
+                         kcfar.GosRegs, P)
+        return kcfar.launch(kernel, x, fn,
+                            kchain._row_twiddles(n, x.device).data_ptr(),
+                            n.bit_length() - 1, fft_scale(n, cfg.fft),
+                            kcfar.gos_registers(rt, cfg.cfar, n), None)
+    fn = kcfar.entry("rsp_chain_int_gos_rows", P, I, I, I, kint.IntRegs, P)
+    return kcfar.launch(kernel, x, fn,
+                        kint._int_twiddles(n, x.device).data_ptr(),
+                        n.bit_length() - 1, *kint.fft_masks(cfg.fft, n),
+                        kint.int_registers(rt, cfg.cfar, n), None,
+                        dtype=torch.int32)
+
+
+def _counted_run(kernel, n, frames, regs, zeros=False):
+    """(the wrapper's output, the null counter's, the plain version's) of D
+    or G over ``frames`` frames of n."""
+    cfg = _gos_cfg(n)
+    rt = rsp.RuntimeConfig.make(**{"fft_size": n, **GOS, **regs})
+    if kernel == "chain_gos":
+        x = _iq((frames, n), torch.device("cuda", 0), seed=frames + n)
+        run, plain = kchain.chain_gos, kchain.chain_gos_reference
+    else:
+        x = _int_iq((frames, n), torch.device("cuda", 0), seed=frames + n,
+                    amp=30000)
+        run, plain = kint.chain_int_gos, kint.chain_int_gos_reference
+    if zeros:
+        x = rsp.C(torch.zeros_like(x.re), torch.zeros_like(x.im))
+    before = _build.LAUNCHES[kernel]
+    got = run(x, rt, cfg.fft, cfg.cfar)
+    assert _build.LAUNCHES[kernel] == before + 1
+    return (got, _uncounted(kernel, x, rt, cfg),
+            _by_frames(lambda c: plain(c, rt, cfg.fft, cfg.cfar), x))
+
+
+def _assert_counted(got, uncounted):
+    """The kernel's count equals the sum of its peaks, and thresholds and
+    peaks equal the null counter's byte for byte."""
+    torch.cuda.synchronize()
+    assert uncounted.detections is None
+    assert got.detections.dtype == torch.int64 and got.detections.dim() == 0
+    assert got.detections.device == got.peaks.device
+    assert int(got.detections.item()) == int(got.peaks.sum().item())
+    assert torch.equal(got.threshold.view(torch.int32),
+                       uncounted.threshold.view(torch.int32))
+    assert torch.equal(got.peaks, uncounted.peaks)
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024])
+@pytest.mark.parametrize("frames", COUNT_FRAMES)
+@pytest.mark.parametrize("case", list(COUNT_REGS))
+@pytest.mark.parametrize("kernel", ["chain_gos", "chain_int_gos"])
+def test_kernels_d_and_g_count_their_peaks(dev, kernel, n, frames, case):
+    if kernel == "chain_int_gos" and COUNT_REGS[case].get("cfar_mode") == 3:
+        pytest.skip("G has no CASH datapath: the integer ops run CASH")
+    got, uncounted, want = _counted_run(kernel, n, frames, COUNT_REGS[case])
+    _assert_counted(got, uncounted)
+    if kernel == "chain_gos":
+        _assert_close(got, want)
+    else:
+        _assert_exact(got, want)
+    active = min(int(COUNT_REGS[case].get("cfar_fft_size", n)), n)
+    if case.startswith("most"):
+        # most active cells detect; with grouping, most local maxima
+        share = 0.2 if "grouping" in case else 0.5
+        assert int(got.detections.item()) > share * frames * active
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024])
+@pytest.mark.parametrize("frames", [1, 17])
+@pytest.mark.parametrize("case", ["GOS", "CASH", "CA sums, grouping"])
+@pytest.mark.parametrize("kernel", ["chain_gos", "chain_int_gos"])
+def test_kernels_d_and_g_count_zero_on_an_all_zero_cpi(dev, kernel, n,
+                                                       frames, case):
+    if kernel == "chain_int_gos" and case == "CASH":
+        pytest.skip("G has no CASH datapath: the integer ops run CASH")
+    got, uncounted, want = _counted_run(kernel, n, frames, COUNT_REGS[case],
+                                        zeros=True)
+    _assert_counted(got, uncounted)
+    assert int(got.detections.item()) == 0
+    assert torch.equal(got.peaks, want.peaks)
+
+
+def test_kernels_d_and_g_on_no_frames_make_no_count(dev):
+    cfg = _gos_cfg(1024)
+    rt = rsp.RuntimeConfig.make(fft_size=1024, **GOS)
+    x = _iq((0, 1024), dev)
+    assert kchain.chain_gos(x, rt, cfg.fft, cfg.cfar).detections is None
+    xi = _int_iq((0, 1024), dev)
+    assert kint.chain_int_gos(xi, rt, cfg.fft, cfg.cfar).detections is None
+
+
+@pytest.mark.parametrize("bit_true", [False, True], ids=["float", "bit-true"])
+def test_streamed_counts_equal_the_peaks_across_ca_and_gos_registers(
+        dev, bit_true):
+    """A stream whose registers switch between CA (Kernel A or F, summed by
+    ``peaks.sum``) and GOS (Kernel D or G, counted by the kernel): every
+    delivered count equals its CPI's peaks, and the kernel counted exactly
+    the GOS CPIs."""
+    from rsp_chains_tpu_torch.io import StreamingPipeline
+
+    cfg = rsp.ChainConfig()
+    if bit_true:
+        cfg = dataclasses.replace(cfg, fixed_point=rsp.FixedPointConfig(
+            enabled=True, width=16, bin_point=0, bit_true=True))
+    chain = rsp.fft_mag_cfar_chain(cfg)
+    ca = rsp.RuntimeConfig.make(fft_size=1024, div_sum=5)
+    gos = ca.merge_regs(**GOS)
+    regs = [gos, ca, gos, gos, ca, ca, gos, ca]
+    schedule = iter(regs)
+    cpis = [np.round(c * 250) for c in _stream_cpis(len(regs),
+                                                    shape=(16, 1024))]
+    got = {}
+
+    def keep(seq, out, m):
+        got[seq] = (m.detections, int(out.peaks.sum().item()),
+                    out.detections is not None)
+
+    pipe = StreamingPipeline(lambda x, rt: chain(x, next(schedule)), None,
+                             on_result=keep, device=dev)
+    _build.LAUNCHES.clear()
+    with pipe:
+        for s, c in enumerate(cpis):
+            pipe.submit(s, c)
+        _wait_for(lambda: len(got) == len(cpis), "every CPI")
+    assert pipe.stats.frames_failed == 0
+    d, a = ("chain_int_gos", "chain_int") if bit_true else ("chain_gos",
+                                                             "chain_ca")
+    n_gos = sum(r is gos for r in regs)
+    assert _build.LAUNCHES[d] == n_gos
+    assert _build.LAUNCHES[a] == len(regs) - n_gos
+    for s, r in enumerate(regs):
+        assert got[s][0] == got[s][1], s
+        assert got[s][2] == (r is gos), s
+    assert pipe.stats.phase_totals()["n_kernel_counts"] == n_gos
+    assert pipe.detections_total == sum(g[1] for g in got.values())
+
+
 def _bit_true(cfar):
     return rsp.ChainConfig(cfar=cfar, fixed_point=rsp.FixedPointConfig(
         enabled=True, width=16, bin_point=0, bit_true=True))

@@ -143,7 +143,7 @@ def test_phase_totals_hold_the_counters():
     tot = pipe.stats.phase_totals()
     assert list(tot) == list(PHASES + COUNTERS)
     assert set(COUNTERS) == {"t_submit_wait", "t_cpu_dispatch", "t_launch",
-                             "n_launches", "t_fetch"}
+                             "n_launches", "t_fetch", "n_kernel_counts"}
     assert set(pipe.stats.phase_ms_per_cpi()) == set(PHASES)
     assert 0 < tot["t_cpu_dispatch"] <= tot["t_dispatch"] + 1e-3
     assert 0 < tot["t_fetch"] <= tot["t_result"]
