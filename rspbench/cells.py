@@ -2,11 +2,23 @@
 
 A cell (an entry of ``workloads``) names a configuration and a traffic mix.
 Everything that belongs to one of them lives in a file of its own, found by
-name, so that a later cell, mix or metric is added as files and entries:
+name, so that a later cell, mix, configuration, chain, scene or metric is
+added as files and entries:
 
 * the configuration: the ``file`` of its ``configs`` entry
-  (``rspbench/configs/<name>.json``), with its plain reference
-  ``rspbench/reference/<reference>.py`` named inside it;
+  (``rspbench/configs/<name>.json``), which names inside it
+  - its plain reference, ``rspbench/reference/<reference>.py``, which
+    defines ``chain``;
+  - its chain, ``rspbench/chains/<chain>.py`` (the top-level key
+    ``chain``; ``fft_mag_cfar`` where the key is absent), which defines
+    ``build(config, mix, device) -> (chain, rt)``, the program under test
+    that the pipeline calls as ``chain(x, rt)`` with its register file, and
+    ``work(config)``, the bytes, operations and least time of one CPI
+    (``roofline.cpi_work``);
+  - its scene, ``rspbench/scenes/<kind>.py`` (``scene.kind``;
+    ``fmcw_beat`` where the key is absent), which defines
+    ``make_cpi(config, g, device) -> (re, im)``, one CPI's float planes
+    drawn from the generator ``g`` (``inputs.make_ring``);
 * the traffic mix: ``rspbench/traffic/<traffic>.json``;
 * each metric: a reader ``rspbench/metrics/<base>.py``, where ``<base>`` is
   the metric's name up to its first dot (``dispatch_ms.sat`` and
@@ -26,6 +38,8 @@ from typing import Callable, Optional
 
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
+DEFAULT_CHAIN = "fft_mag_cfar"
+DEFAULT_SCENE = "fmcw_beat"
 
 
 @dataclass(frozen=True)
@@ -68,6 +82,13 @@ def resolve(name: str, root: Path = REPO) -> Cell:
                 per_layer=_for_cell(bench["per_layer"], name))
 
 
+def registers(config: dict, mix: dict) -> dict:
+    """The configuration's registers with the mix's writes: what the chain
+    file's ``build`` reads and the reference is handed (a chain with a
+    second register record keeps it here under a key of its own)."""
+    return {**config["registers"], **mix.get("registers", {})}
+
+
 def _load_file(path: Path, module_name: str):
     spec = importlib.util.spec_from_file_location(module_name, path)
     if spec is None or spec.loader is None:
@@ -77,18 +98,30 @@ def _load_file(path: Path, module_name: str):
     return mod
 
 
+def _named(root: Path, folder: str, name: str):
+    """The module of ``rspbench/<folder>/<name>.py`` under ``root``."""
+    return _load_file(root / "rspbench" / folder / f"{name}.py",
+                      f"rspbench_{folder}_{name}")
+
+
 def metric_reader(name: str, root: Path = REPO) -> Callable:
     """The ``read`` function of metric ``name``'s reader file."""
-    base = name.split(".", 1)[0]
-    path = root / "rspbench" / "metrics" / f"{base}.py"
-    return _load_file(path, f"rspbench_metric_{base}").read
+    return _named(root, "metrics", name.split(".", 1)[0]).read
 
 
 def reference(config: dict, root: Path = REPO):
     """The plain reference module that ``config`` names."""
-    ref = config["reference"]
-    return _load_file(root / "rspbench" / "reference" / f"{ref}.py",
-                      f"rspbench_reference_{ref}")
+    return _named(root, "reference", config["reference"])
+
+
+def chain(config: dict, root: Path = REPO):
+    """The chain module that ``config`` names."""
+    return _named(root, "chains", config.get("chain", DEFAULT_CHAIN))
+
+
+def scene(config: dict, root: Path = REPO):
+    """The scene module that ``config``'s scene names."""
+    return _named(root, "scenes", config["scene"].get("kind", DEFAULT_SCENE))
 
 
 def read_metrics(entries: tuple, run, root: Path = REPO) -> dict:

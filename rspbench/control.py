@@ -27,8 +27,8 @@ def control_readings(cell: cells.Cell, seed: int, device: str = "cuda",
     counts."""
     config, mix = cell.config, cell.traffic
     n_ring = int(mix["ring"])
-    ring = inputs.make_ring(config, n_ring, seed, device)
-    regs = run.registers(config, mix)
+    ring = inputs.make_ring(config, n_ring, seed, device, root)
+    regs = cells.registers(config, mix)
     ref = cells.reference(config, root)
     refs = judge.reference_outputs(ref, config, regs, ring, range(n_ring))
     ctl = judge.reference_outputs(ref, config, regs, ring, range(n_ring),

@@ -1,7 +1,9 @@
 """launches_per_cpi: the C entry launches of a CPI's dispatch, the delta over
-the window of ``StreamStats.n_launches`` over the CPIs delivered in it (the
-count's ``peaks.sum`` is torch's own and not counted). None where the
-program keeps no such counter."""
+the window of ``StreamStats.n_launches`` over the CPIs delivered in it.
+Kernels D and G count a CPI's peaks in their own tail, inside the one launch
+(``CfarOutput.detections``); ``io/stream.cpi_count`` takes that count, and
+torch's ``peaks.sum``, which is not counted here, remains only for outputs
+that carry no count. None where the program keeps no such counter."""
 
 
 def read(run):

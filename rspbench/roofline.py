@@ -1,47 +1,38 @@
-"""The least time a CPI's work can take on one NVIDIA H100, from its shapes.
+"""The least time a CPI's work can take on one NVIDIA H100.
 
-The arithmetic of the port's kernel table (``PERF.md`` section 6), kept here
-so that no later change to the program moves the yardstick:
-
-* bytes: each input byte read once and each output byte written once. The
-  input is two 32-bit planes (float32, or the integer samples as int32), 8 B
-  a sample; the output a 32-bit threshold and a one-byte peak flag, 5 B a
-  sample: 13 B a sample whatever kernels implement the chain.
-* operations: a float FFT's 5 N log2 N a frame at the float32 peak outside
-  the tensor cores; the bit-true chain's butterflies, 8.5 log2 N a sample,
-  at the int32 peak (half the float32 issue rate).
-
-The least time is the larger of bytes over the memory bandwidth and
-operations over the peak rate. Peaks are NVIDIA's data sheet figures for the
-SXM part at its 700 W limit; ``power_limit_w`` reads the card's own limit,
-which is reported beside every share of these peaks.
+A configuration's chain file (``rspbench/chains/<chain>.py``, found by
+``cells.chain``) counts the bytes and operations of one CPI from its shapes,
+whatever kernels implement the chain; ``cpi_work`` is the one entry point.
+This module keeps the card's peaks, so that no later change to the program
+moves the yardstick: the least time is the larger of bytes over the memory
+bandwidth and operations over the peak rate. Peaks are NVIDIA's data sheet
+figures for the SXM part at its 700 W limit; ``power_limit_w`` reads the
+card's own limit, which is reported beside every share of these peaks.
 """
 
 from __future__ import annotations
 
-import math
 import subprocess
 from typing import Optional
+
+from . import cells
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_PER_S = 67e12
 INT32_PER_S = 33.5e12
-IN_BYTES = 8
-OUT_BYTES = 5
 
 
-def cpi_work(config: dict) -> dict:
-    """Bytes, operations and the least seconds of one CPI of ``config``."""
-    cpi = config["cpi"]
-    n = int(cpi["samples"])
-    samples = int(cpi["channels"]) * int(cpi["pulses"]) * n
-    frames = samples // n
-    log2n = math.log2(n)
-    nbytes = samples * (IN_BYTES + OUT_BYTES)
-    if config["numeric_format"] == "bit_true_int16":
-        ops, peak = 8.5 * log2n * samples, INT32_PER_S
-    else:
-        ops, peak = 5.0 * n * log2n * frames, FP32_PER_S
+def cpi_work(config: dict, root=cells.REPO) -> dict:
+    """Bytes, operations and the least seconds of one CPI of ``config``, as
+    its chain file's ``work`` counts them: the keys of ``least``."""
+    return cells.chain(config, root).work(config)
+
+
+def least(samples: int, nbytes: float, ops: float, peak: float) -> dict:
+    """The work of a CPI of ``samples`` samples that moves ``nbytes`` and
+    computes ``ops`` operations at ``peak`` a second: ``samples``,
+    ``bytes``, ``ops``, the times ``bytes_s`` and ``ops_s``, the larger of
+    them ``least_s``, and ``bound_by``, which of the two it is."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return {"samples": samples, "bytes": nbytes, "ops": ops,
             "bytes_s": t_bytes, "ops_s": t_ops,

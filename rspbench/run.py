@@ -7,9 +7,11 @@ from the root of a checkout, on a machine with the CUDA cards the cell asks
 for. The run:
 
 1. set-up: loads the cell's configuration and traffic files, builds the
-   chain (``rsp_chains_tpu_torch.presets.fft_mag_cfar_chain``; the kernel
+   program under test by the configuration's chain file
+   (``rspbench/chains/<chain>.py``, ``cells.chain``; the port's kernel
    library is built on its first use in a checkout, into the package's
-   ``_build`` directory), makes the ring of CPIs on the card from the seed,
+   ``_build`` directory), makes the ring of CPIs on the card from the seed
+   by its scene file (``rspbench/scenes/<kind>.py``, ``inputs.make_ring``),
    starts a ``StreamingPipeline`` and pushes the warm-up CPIs through it;
 2. the window: drives the traffic for ``--seconds`` and records every
    delivery. With ``--trace 0`` the card's activity is traced over the whole
@@ -80,47 +82,30 @@ def forbidden_modules() -> list:
     return sorted(tops.intersection(FORBIDDEN))
 
 
-def build(config: dict, mix: dict, device):
-    """The program under test: the chain of the configuration's elaboration
-    and the register file of its registers with the mix's writes."""
-    from rsp_chains_tpu_torch import (
-        CfarConfig, CfarVariant, ChainConfig, FftConfig, FixedPointConfig,
-        RuntimeConfig, fft_mag_cfar_chain,
-    )
-
-    el = config["elaboration"]
-    c = el["cfar"]
-    cfg = ChainConfig(
-        fft=FftConfig(max_size=el["fft_max_size"]),
-        cfar=CfarConfig(variant=CfarVariant[c["variant"]],
-                        include_cash=c["include_cash"],
-                        max_ref_window=c["max_ref_window"],
-                        max_guard_window=c["max_guard_window"],
-                        max_fft_size=c["max_fft_size"]),
-        fixed_point=FixedPointConfig(**el["fixed_point"]))
-    rt = RuntimeConfig.make(**registers(config, mix),
-                            validate_against=cfg.cfar)
-    return fft_mag_cfar_chain(cfg, device=device), rt
-
-
-def registers(config: dict, mix: dict) -> dict:
-    return {**config["registers"], **mix.get("registers", {})}
+def build(config: dict, mix: dict, device, root=cells.REPO):
+    """The program under test and its register file, as the configuration's
+    chain file builds them."""
+    return cells.chain(config, root).build(config, mix, device)
 
 
 def _traced_slice(drv, rec, seconds: float):
     """Drive the traffic for ``seconds`` more under the profiler; returns
     the slice's ``TraceSummary`` and the CPIs delivered in it. A trace that
-    holds no device operation (the profiler lost the card's activity) is
-    taken again once, then fails the run."""
+    holds no kernel (the profiler lost the card's kernel activity, and with
+    it nearly all of the busy time that ``chain_roofline`` divides by; every
+    CPI launches one) is taken again, up to three slices in all, then fails
+    the run."""
     from .trace import Slice
 
-    for _ in range(2):
+    for _ in range(3):
         n_before = len(rec.delivered)
         with Slice() as sl:
             drv.run(time.perf_counter() + seconds)
-        if sl.summary.busy_s > 0:
+        if sl.summary.kernels > 0:
             return sl.summary, len(rec.delivered) - n_before
-    raise RuntimeError("the profiler's trace holds no device operation")
+        print("rspbench: the traced slice holds no kernel; device "
+              f"operations {sl.summary.device_ops}", file=sys.stderr)
+    raise RuntimeError("the profiler's trace holds no kernel")
 
 
 def _wait_delivered(rec, pipe, last_seq: int, seconds: float = 60.0) -> None:
@@ -152,11 +137,11 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
 
     config, mix = cell.config, cell.traffic
     cuda = torch.device(device).type == "cuda"
-    chain, rt = build(config, mix, device)
+    chain, rt = build(config, mix, device, root)
     if wrap_chain is not None:
         chain = wrap_chain(chain)
     n_ring = int(mix["ring"])
-    planes = inputs.make_ring(config, n_ring, seed, device)
+    planes = inputs.make_ring(config, n_ring, seed, device, root)
     ring = [C(re, im) for re, im in planes]
     rec = loadgen.Recorder(loadgen.sample_times(seed, seconds,
                                                 int(mix["checked_cpis"])))
@@ -167,7 +152,7 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
         detections_every=int(mix["detections_every"]),
         block_every=int(mix["block_every"]), device=device)
     drv = loadgen.Traffic(pipe, ring, mix)
-    work = roofline.cpi_work(config)
+    work = roofline.cpi_work(config, root)
     pipe.start()
     try:
         warm = int(mix["warmup_cpis"])
@@ -244,7 +229,7 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    regs = registers(config, mix)
+    regs = cells.registers(config, mix)
     refs = judge.reference_outputs(cells.reference(config, root), config,
                                    regs, planes, range(n_ring))
     checks = judge.compare(config, refs, samples, counts, n_ring, undelivered)

@@ -60,6 +60,39 @@ def test_trace_summary_clips_unions_and_names_gaps():
     gaps = dict((k, v) for k, v in s.idle_gaps)
     assert gaps["cudaEventSynchronize"] == pytest.approx(40e-6)
     assert gaps["host: no CUDA call in flight"] == pytest.approx(10e-6)
+    assert s.kernels == 3
+
+
+def test_a_slice_whose_trace_lost_its_kernels_is_taken_again(monkeypatch):
+    """A trace that kept the copies and sets but no kernel reads a roofline
+    share far above 100 %: the slice is taken again, and a run whose three
+    slices all lose them fails."""
+    from rspbench import run
+
+    kept = [_ev(trace.WINDOW_SPAN, "user_annotation", 0, 100),
+            _ev("copy", "gpu_memcpy", 10, 5)]
+    traces = [kept, kept + [_ev("k", "kernel", 20, 30)]]
+
+    class FakeSlice:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            self.summary = trace.summarize(traces.pop(0))
+
+    class Drive:
+        def run(self, until):
+            rec.delivered[len(rec.delivered)] = until
+
+    rec = loadgen.Recorder()
+    monkeypatch.setattr(trace, "Slice", FakeSlice)
+    summary, n = run._traced_slice(Drive(), rec, 0.0)
+    assert summary.kernels == 1 and summary.busy_s == pytest.approx(35e-6)
+    assert n == 1 and not traces
+    traces[:] = [kept] * 3
+    with pytest.raises(RuntimeError):
+        run._traced_slice(Drive(), rec, 0.0)
+    assert not traces
 
 
 def test_union():

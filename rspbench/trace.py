@@ -33,6 +33,7 @@ class TraceSummary:
     busy_s: float
     device_ops: list = field(default_factory=list)   # [[name, seconds]]
     idle_gaps: list = field(default_factory=list)    # [[host activity, s]]
+    kernels: int = 0                                 # kernel events in it
 
 
 def union(intervals: list) -> list:
@@ -58,6 +59,7 @@ def summarize(events: list, top: int = 10) -> TraceSummary:
     w1 = w0 + float(span[0]["dur"])
     dev, ops = [], defaultdict(float)
     host = []
+    kernels = 0
     for e in events:
         if e.get("ph") != "X" or "dur" not in e:
             continue
@@ -69,6 +71,7 @@ def summarize(events: list, top: int = 10) -> TraceSummary:
             if t > s:
                 dev.append((s, t))
                 ops[e["name"][:160]] += (t - s) * 1e-6
+                kernels += cat == "kernel"
         elif cat in HOST_CATS and e["name"] != WINDOW_SPAN:
             host.append((s, t, e["name"][:160]))
     busy = union(dev)
@@ -86,7 +89,8 @@ def summarize(events: list, top: int = 10) -> TraceSummary:
     rank = (lambda d: sorted(([k, v] for k, v in d.items()),
                              key=lambda kv: -kv[1])[:top])
     return TraceSummary(window_s=(w1 - w0) * 1e-6, busy_s=busy_s,
-                        device_ops=rank(ops), idle_gaps=rank(idle))
+                        device_ops=rank(ops), idle_gaps=rank(idle),
+                        kernels=kernels)
 
 
 def _host_at(host: list, times: list) -> list:
